@@ -25,13 +25,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c_void_p, _c_int, _c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_GATHER_ARGS = [_c_void_p, _c_void_p, _c_int, _c_void_p, _c_int64, _c_int64,
+                _c_void_p]
+# exported C function -> (source it lives in, ctypes argument types)
 _SIGNATURES = {
-    "row_gather": ("row_gather_f32",
-                   [_c_void_p, _c_void_p, _c_int, _c_void_p, _c_int64,
-                    _c_int64, _c_void_p]),
-    "row_scatter_add": ("row_scatter_add_f32",
-                        [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64,
-                         _c_int64, _c_int64, _c_void_p]),
+    "row_gather_f32": ("row_gather", _GATHER_ARGS),
+    "row_gather_b16": ("row_gather", _GATHER_ARGS),
+    "row_scatter_add_f32": ("row_scatter_add",
+                            [_c_void_p, _c_int, _c_void_p, _c_void_p,
+                             _c_int64, _c_int64, _c_int64, _c_void_p]),
 }
 
 _loaded: Dict[str, Any] = {}
@@ -78,17 +80,18 @@ def build(force: bool = False) -> Dict[str, dict]:
     return info
 
 
-def kernel(name: str):
-    """The ctypes function of one kernel, building its library if needed."""
-    fn = _loaded.get(name)
+def kernel(symbol: str):
+    """The ctypes function ``symbol`` of one kernel library, building the
+    library if needed."""
+    fn = _loaded.get(symbol)
     if fn is None:
+        name, argtypes = _SIGNATURES[symbol]
         lib = BUILD_DIR / f"lib{name}.so"
         src = CSRC / f"{name}.cu"
         if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
             build()
-        symbol, argtypes = _SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[symbol] = fn
     return fn

@@ -2,7 +2,8 @@
 their autograd pairing.
 
 K1 ``row_gather(table [R, C], idx [N]) -> [N, C]`` replaces the Pallas
-kernel ``make_gather`` and K2 ``row_scatter_add(idx [N], val [N, C], R) ->
+kernel ``make_gather`` (f32 rows, and bf16 rows for the corner-packed baked
+sigma grid and alpha mask) and K2 ``row_scatter_add(idx [N], val [N, C], R) ->
 [R, C]`` replaces ``make_scatter_add`` (both in
 ``scripts/bench_pallas_scatter.py``). Each wrapper takes its plain PyTorch
 version only for tensors on the CPU; for CUDA tensors it launches the
@@ -19,7 +20,10 @@ import torch
 
 from tensoir_tpu_torch.kernels import build
 
-LAUNCHES = {"row_gather": 0, "row_scatter_add": 0}
+# K1 on f32 rows, K1 on 2-byte (bf16) rows, K2
+LAUNCHES = {"row_gather": 0, "row_gather_bf16": 0, "row_scatter_add": 0}
+_GATHER_SYMBOL = {torch.float32: ("row_gather_f32", "row_gather"),
+                  torch.bfloat16: ("row_gather_b16", "row_gather_bf16")}
 
 
 def reset_launch_counts() -> None:
@@ -71,23 +75,25 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K1: ``out[i, :] = table[idx[i], :]`` for f32 ``table [R, C]``."""
+    """K1: ``out[i, :] = table[idx[i], :]`` for an f32 or bf16 ``table [R,
+    C]``. Not differentiable by itself (``gather_rows`` is)."""
     _check_idx(idx)
-    if table.dim() != 2 or table.dtype != torch.float32:
-        raise ValueError(f"table must be 2-D float32, got {table.dtype} "
-                         f"{tuple(table.shape)}")
+    if table.dim() != 2 or table.dtype not in _GATHER_SYMBOL:
+        raise ValueError(f"table must be 2-D float32 or bfloat16, got "
+                         f"{table.dtype} {tuple(table.shape)}")
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return row_gather_plain(table, idx)
     _check_cuda(table, idx)
     n, c = idx.shape[0], table.shape[1]
     out = torch.empty((n, c), dtype=table.dtype, device=table.device)
-    fn = build.kernel("row_gather")
+    symbol, counter = _GATHER_SYMBOL[table.dtype]
+    fn = build.kernel(symbol)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), idx.data_ptr(),
                  int(idx.dtype == torch.int64), out.data_ptr(), n, c, stream)
-    _raise_on(err, "row_gather")
-    LAUNCHES["row_gather"] += 1
+    _raise_on(err, symbol)
+    LAUNCHES[counter] += 1
     return out
 
 
@@ -105,7 +111,7 @@ def row_scatter_add(idx: torch.Tensor, val: torch.Tensor,
     _check_cuda(idx, val)
     n, c = val.shape
     out = torch.empty((num_rows, c), dtype=val.dtype, device=val.device)
-    fn = build.kernel("row_scatter_add")
+    fn = build.kernel("row_scatter_add_f32")
     with torch.cuda.device(val.device):
         stream = torch.cuda.current_stream(val.device).cuda_stream
         err = fn(idx.data_ptr(), int(idx.dtype == torch.int64),

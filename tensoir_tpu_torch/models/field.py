@@ -1,12 +1,14 @@
 """The TensoIR radiance field, VM decomposition (port of
-tensoir_tpu.models.field: config, init, and the queries the radiance step
-and the alpha mask need).
+tensoir_tpu.models.field: config, init, the queries of the training step,
+derived normals, the alpha mask and the baked sigma grid).
 
 Parameters and scene are flat dicts of tensors keyed exactly like the JAX
 pytrees (``density_plane_{i}`` [H, W, R], ``density_line_{i}`` [D, R],
 ``app_*``, ``light_line``, ``basis_mat``, MLP dicts, ``lgt_sgs``), so a
 JAX-initialized field carries over with ``weights.params_from_numpy``.
-Every VM plane lookup goes through the corner-packed row gather K1.
+Every VM plane lookup goes through the corner-packed row gather K1 on f32
+rows; the corner-packed trilinear lookups (alpha mask, baked sigma grid)
+go through K1 on bf16 rows.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import torch
 import torch.nn.functional as Fn
 
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
+from tensoir_tpu_torch.kernels import row_gather
 from tensoir_tpu_torch.models import lighting, mlps
 from tensoir_tpu_torch.ops.interp import (bilerp_plane_packed,
                                           lerp_line_matmul, trilerp_volume)
+from tensoir_tpu_torch.ops.rays import linspace, safe_l2_normalize
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
@@ -142,9 +146,15 @@ def normalize_coord(aabb, xyz):
 
 
 def step_size(aabb, grid_size: Tuple[int, int, int], step_ratio: float):
-    """mean(voxel units) * step_ratio, a 0-d tensor."""
+    """mean(voxel units) * step_ratio, a 0-d tensor.
+
+    The mean is the sum times 1/3, as XLA computes ``jnp.mean``, on every
+    device (``Tensor.mean`` divides on the CPU and multiplies on CUDA). The
+    samples sit on the voxel grid's half steps, so an ulp of the step moves
+    some of them across the nearest-voxel test's rounding ties."""
     grid = torch.as_tensor(grid_size, dtype=torch.float32, device=aabb.device)
-    return ((aabb[1] - aabb[0]) / (grid - 1.0)).mean() * step_ratio
+    units = (aabb[1] - aabb[0]) / (grid - 1.0)
+    return (units[0] + units[1] + units[2]) * (1.0 / 3.0) * step_ratio
 
 
 # ------------------------------------------------------------------- queries
@@ -232,11 +242,106 @@ def feature2density(cfg: FieldConfig, feat):
     return torch.relu(feat)
 
 
+def density(cfg: FieldConfig, params: Dict, coords):
+    return feature2density(cfg, density_feature(cfg, params, coords))
+
+
+def derived_normals(cfg: FieldConfig, params: Dict, coords):
+    """n = -normalize(d sigma / d coords) at coords [P, 3].
+
+    The gradient is taken with ``create_graph`` whenever grad mode is on,
+    so the normals stay differentiable in the parameters: the loss's
+    gradient then runs a double backward through the line products and
+    through K1/K2, each of which is the other's backward."""
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        c = coords.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(density(cfg, params, c).sum(), c,
+                                   create_graph=create_graph)
+    return -safe_l2_normalize(g)
+
+
+# ------------------------------------------------------------- baked density
+
+def bake_sigma_feature_grid(cfg: FieldConfig, params: Dict) -> torch.Tensor:
+    """The VM sigma feature on its own grid nodes, [Z, Y, X]: per axis an
+    outer product of a plane and a line, summed over components."""
+    _require_vm(cfg)
+    p0, l0 = density_factors(cfg, params, 0)  # [Y, X, R], [Z, R]
+    p1, l1 = density_factors(cfg, params, 1)  # [Z, X, R], [Y, R]
+    p2, l2 = density_factors(cfg, params, 2)  # [Z, Y, R], [X, R]
+    out = torch.einsum("yxr,zr->zyx", p0, l0)
+    out = out + torch.einsum("zxr,yr->zyx", p1, l1)
+    return out + torch.einsum("zyr,xr->zyx", p2, l2)
+
+
+def _mask_at_grid_nodes(scene: Dict, grid_xyz: Tuple[int, int, int]):
+    """The alpha mask resampled onto the factor grid's nodes, [Z, Y, X], by
+    three 1-D linear-interpolation matrices (the mask lives on
+    ``alpha_aabb``, the grid on ``aabb``); all ones before a mask exists."""
+    X, Y, Z = grid_xyz
+    vol = scene["alpha_volume"].float()                         # [D, H, W]
+    D, H, W = vol.shape
+    aabb, a_aabb = scene["aabb"], scene["alpha_aabb"]
+    dev = vol.device
+
+    def axis_matrix(n_out, n_in, axis):
+        world = aabb[0, axis] + (aabb[1, axis] - aabb[0, axis]) * linspace(
+            0.0, 1.0, n_out, device=dev)
+        t = (world - a_aabb[0, axis]) / (a_aabb[1, axis] - a_aabb[0, axis])
+        pos = t.clamp(0.0, 1.0)[:, None] * (n_in - 1)
+        j = torch.arange(n_in, dtype=torch.float32, device=dev)[None, :]
+        return (1.0 - (pos - j).abs()).clamp_min(0.0)           # [n_out, n_in]
+
+    out = torch.einsum("zd,dhw->zhw", axis_matrix(Z, D, 2), vol)
+    out = torch.einsum("yh,zhw->zyw", axis_matrix(Y, H, 1), out)
+    out = torch.einsum("xw,zyw->zyx", axis_matrix(X, W, 0), out)
+    return torch.where(scene["has_alpha_mask"] > 0, out,
+                       torch.ones_like(out))
+
+
+def _bake_masked_dense(cfg: FieldConfig, params: Dict, scene: Dict,
+                       max_reso: int = 0) -> torch.Tensor:
+    """Dense sigma-feature grid [Z, Y, X] with the alpha mask folded in
+    (masked nodes -> -1e4, whose softplus is 0)."""
+    if max_reso > 0:
+        raise NotImplementedError(
+            "secondary_bake_reso > 0 (factor-resized bake): not ported yet")
+    baked = bake_sigma_feature_grid(cfg, params)
+    Z, Y, X = baked.shape
+    mask = _mask_at_grid_nodes(scene, (X, Y, Z))
+    return torch.where(mask > 0, baked, torch.full_like(baked, -1e4))
+
+
+@torch.no_grad()
+def bake_packed_sigma_grid(cfg: FieldConfig, params: Dict, scene: Dict,
+                           dtype=torch.bfloat16,
+                           max_reso: int = 0) -> torch.Tensor:
+    """Corner-packed baked sigma-feature grid [Z-1, Y-1, X-1, 8] (bf16 by
+    default): one row per cell, so a secondary-ray sample is one K1 row.
+    Not differentiable: the secondary pass that reads it runs without
+    gradients."""
+    return pack_corner_volume(_bake_masked_dense(cfg, params, scene, max_reso),
+                              dtype)
+
+
 # ---------------------------------------------------------------- alpha mask
+
+def pack_corner_volume(vol: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Corner-pack a [D, H, W] volume into [D-1, H-1, W-1, 8] rows, the
+    layout ``density_feature_packed`` reads: each cell's 8 corner values in
+    channel order 4*dz + 2*dy + dx."""
+    D, H, W = vol.shape
+    return torch.stack([vol[dz:D - 1 + dz, dy:H - 1 + dy, dx:W - 1 + dx]
+                        for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)],
+                       -1).to(dtype)
+
 
 def density_feature_packed(packed: torch.Tensor, coords) -> torch.Tensor:
     """Trilinear lookup of a corner-packed grid [Zc, Yc, Xc, 8] (corner
-    order 4*dz + 2*dy + dx, any dtype, read as f32) at coords [..., 3]."""
+    order 4*dz + 2*dy + dx, f32 or bf16, read as f32) at coords [..., 3]:
+    one K1 row per point. Not differentiable in ``packed``."""
     Zc, Yc, Xc, _ = packed.shape
     x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
     fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
@@ -246,8 +351,10 @@ def density_feature_packed(packed: torch.Tensor, coords) -> torch.Tensor:
     iy = torch.floor(fy).clamp(0, Yc - 1)
     iz = torch.floor(fz).clamp(0, Zc - 1)
     wx, wy, wz = fx - ix, fy - iy, fz - iz
-    idx = (iz.long() * Yc + iy.long()) * Xc + ix.long()
-    rows = packed.reshape(Zc * Yc * Xc, 8)[idx].float()
+    i32 = torch.int32
+    idx = (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32)
+    rows = row_gather(packed.reshape(Zc * Yc * Xc, 8),
+                      idx.reshape(-1)).float().reshape(*idx.shape, 8)
     w0x, w1x = 1.0 - wx, wx
     w0y, w1y = 1.0 - wy, wy
     w0z, w1z = 1.0 - wz, wz
@@ -284,3 +391,14 @@ def sample_alpha_mask_nearest(scene: Dict, xyz):
     vals = vol.reshape(-1)[idx]
     return torch.where(scene["has_alpha_mask"] > 0, vals > 0,
                        torch.ones_like(vals, dtype=torch.bool))
+
+
+def compute_alpha_grid(cfg: FieldConfig, params: Dict, scene: Dict, grid,
+                       step):
+    """alpha = 1 - exp(-sigma * step) at world points [..., 3], zero where
+    the current alpha mask is."""
+    mask = sample_alpha_mask(scene, grid) > 0
+    coords = normalize_coord(scene["aabb"], grid)
+    sigma = torch.where(mask, density(cfg, params, coords),
+                        torch.zeros_like(mask, dtype=grid.dtype))
+    return 1.0 - torch.exp(-sigma * step)

@@ -1,5 +1,5 @@
 """Shading MLPs as parameter dicts + apply functions (port of
-tensoir_tpu.models.mlps: init, apply, and the MLP_Fea / BRDF input sizes).
+tensoir_tpu.models.mlps: init, apply, and the MLP_Fea and BRDF inputs).
 
 Three layers, ReLU, weights [in, out] as in the JAX package. Init is
 U(+-1/sqrt(fan_in)) for weights and biases with the last bias zeroed,
@@ -53,3 +53,13 @@ def render_fea_inputs(features, viewdirs, view_pe: int, fea_pe: int):
 def brdf_pe_fea_in_dim(app_dim: int, pos_pe: int, fea_pe: int) -> int:
     """MLPBRDF_PEandFeature input width (BRDF and normal MLPs)."""
     return 2 * pos_pe * 3 + 2 * fea_pe * app_dim + 3 + app_dim
+
+
+def brdf_pe_fea_inputs(pts, features, pos_pe: int, fea_pe: int):
+    """MLPBRDF_PEandFeature inputs: [features, pts, PE(features), PE(pts)]."""
+    parts = [features, pts]
+    if fea_pe > 0:
+        parts.append(positional_encoding(features, fea_pe))
+    if pos_pe > 0:
+        parts.append(positional_encoding(pts, pos_pe))
+    return torch.cat(parts, -1)

@@ -11,13 +11,22 @@ domain's edge agree with the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tensoir_tpu_torch.kernels import gather_rows
 
 
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+def clip(x: torch.Tensor, lo: Optional[float],
+         hi: Optional[float]) -> torch.Tensor:
+    """``jnp.clip``: either bound may be None. The bounds are filled on
+    the tensor's device (``new_tensor`` would copy each from the host)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
 
 
 def _unnormalize(coord, size: int, align_corners: bool):

@@ -1,10 +1,11 @@
 """Ray marching primitives (port of tensoir_tpu.ops.rays, the parts the
-radiance step needs). Random jitter is passed in, not drawn here, so a test
+training step needs). Random jitter is passed in, not drawn here, so a test
 can hand both packages the same numbers."""
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -31,6 +32,36 @@ def sample_ray(rays_o, rays_d, aabb, near: float, far: float, step_size,
     if jitter is not None:
         rng = rng + jitter
     z_vals = t_min[:, None] + step_size * rng
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    valid = ((xyz >= aabb[0]) & (xyz <= aabb[1])).all(-1)
+    return xyz, z_vals, valid
+
+
+def linspace(start: float, stop: float, num: int, dtype=torch.float32,
+             device=None) -> torch.Tensor:
+    """``jnp.linspace`` as XLA computes it, bit for bit: start * (1 - s) +
+    stop * s with s = i * (1/d) in ``dtype`` (XLA turns the division by the
+    constant d into a product with its reciprocal), and ``stop`` itself
+    last. ``torch.linspace`` rounds some points differently."""
+    if num < 2:
+        return torch.full((num,), start, dtype=dtype, device=device)
+    div = num - 1
+    # Python floats holding the f32 values: a product with an f32 tensor
+    # rounds as XLA's f32 product does, and nothing is copied to the device
+    f32 = np.float32
+    lo, hi, recip = float(f32(start)), float(f32(stop)), float(f32(1) / div)
+    step = torch.arange(div, dtype=dtype, device=device) * recip
+    return torch.cat([lo * (1 - step) + hi * step,
+                      torch.full((1,), hi, dtype=dtype, device=device)])
+
+
+def sample_ray_equally(rays_o, rays_d, aabb, vis_near: float,
+                       vis_far: float, n_samples: int):
+    """Equally spaced samples in [vis_near, vis_far] along secondary rays,
+    one z grid for all. Returns xyz [N, S, 3], z_vals [1, S], valid [N, S]
+    (inside the AABB)."""
+    t = linspace(0.0, 1.0, n_samples, rays_o.dtype, rays_o.device)
+    z_vals = (vis_near * (1.0 - t) + vis_far * t)[None, :]
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     valid = ((xyz >= aabb[0]) & (xyz <= aabb[1])).all(-1)
     return xyz, z_vals, valid

@@ -1,22 +1,29 @@
-"""Primary ray rendering for the radiance phase (port of
-tensoir_tpu.render.primary.render_rays with ``is_relight=False``).
+"""Primary ray rendering (port of tensoir_tpu.render.primary.render_rays).
 
-Dense march over ``n_samples`` fixed steps, density on every sample
-(masked to zero outside the AABB and the alpha mask), compositing, then
+A fixed-step march, or with ``march_cap`` the first ``march_cap`` samples
+per ray that the dilated alpha mask marks occupied; density on every kept
+sample (zero outside the AABB and the alpha mask), compositing, then
 appearance and the MLP_Fea shader on a fixed per-ray top-k of samples by
-weight (``app_cap``). Randomness comes from a ``torch.Generator`` passed as
-``key``; ``key=None`` is the deterministic eval path.
+weight (``app_cap``). With ``is_relight`` the same top-k samples also get
+the BRDF MLP, its jittered copy for the smoothness losses, and normals
+(derived from the density's gradient, predicted by the normal MLP, or
+both). Randomness comes from a ``torch.Generator`` passed as ``key``;
+``key=None`` is the deterministic eval path.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models import mlps
+from tensoir_tpu_torch.ops.color import linear2srgb
 from tensoir_tpu_torch.ops.compositing import raw2alpha
-from tensoir_tpu_torch.ops.rays import sample_ray, z_to_dists
+from tensoir_tpu_torch.ops.interp import clip
+from tensoir_tpu_torch.ops.rays import (safe_l2_normalize, sample_ray,
+                                        z_to_dists)
 
 
 def shade_radiance(cfg: F.FieldConfig, params, viewdirs, features):
@@ -26,6 +33,64 @@ def shade_radiance(cfg: F.FieldConfig, params, viewdirs, features):
             f"shading_mode={cfg.shading_mode!r}: the port has only MLP_Fea")
     x = mlps.render_fea_inputs(features, viewdirs, cfg.view_pe, cfg.fea_pe)
     return torch.sigmoid(mlps.apply_mlp(params["render_mlp"], x))
+
+
+def select_occupied_samples(valid: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` occupied samples of each ray, in depth
+    order, by a top-k on a depth score: (idx [B, cap], sel_valid [B, cap]).
+    Exact whenever a ray has at most ``cap`` occupied samples."""
+    B, S = valid.shape
+    iota = torch.arange(S, device=valid.device).expand(B, S)
+    score = torch.where(valid, (S - iota).float(),
+                        torch.full((B, S), -1.0, device=valid.device))
+    top, idx = torch.topk(score, cap, dim=1)
+    return idx, top > 0.0
+
+
+def select_occupied_samples_scatter(valid: torch.Tensor, cap: int):
+    """Same result as ``select_occupied_samples`` by a cumsum and one
+    scatter. Samples past the cap go to a dump slot ``cap``, the only slot
+    that receives more than one write, and it is cut off."""
+    B, S = valid.shape
+    pos = torch.cumsum(valid.to(torch.int64), 1) - 1
+    pos = torch.where(valid & (pos < cap), pos, torch.full_like(pos, cap))
+    iota = torch.arange(S, device=valid.device).expand(B, S)
+    idx = torch.full((B, cap + 1), S - 1, dtype=torch.int64,
+                     device=valid.device)
+    idx = idx.scatter(1, pos, iota)[:, :cap]
+    count = valid.sum(1)
+    sel_valid = torch.arange(cap, device=valid.device)[None, :] < count[:, None]
+    return idx, sel_valid
+
+
+def compact_nonzero(score: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` entries with score > 0, by a cumsum and
+    one scatter: (idx [cap], valid [cap]). Unfilled slots hold the
+    out-of-range marker N, so a caller clips gathers through them and
+    drops scatters through them."""
+    (N,) = score.shape
+    nz = score > 0
+    pos = torch.cumsum(nz.to(torch.int64), 0) - 1
+    pos = torch.where(nz & (pos < cap), pos, torch.full_like(pos, cap))
+    idx = torch.full((cap + 1,), N, dtype=torch.int64, device=score.device)
+    idx = idx.scatter(0, pos, torch.arange(N, device=score.device))
+    count = nz.sum()
+    valid = torch.arange(cap, device=score.device) < torch.clamp(count,
+                                                                 max=cap)
+    return idx[:cap], valid
+
+
+def _relative_smoothness(values, values_jitter):
+    """sum(((v - vj) / max(v, vj))^2) over the last axis."""
+    base = clip(torch.maximum(values, values_jitter), 1e-6, None)
+    return (((values - values_jitter) / base) ** 2).sum(-1, keepdim=True)
+
+
+def take_samples(x, idx):
+    """x [B, S] or [B, S, C] at per-ray sample indices idx [B, k]."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def render_rays(
@@ -42,18 +107,17 @@ def render_rays(
     white_bg: bool = True,
     app_cap: int = 32,
     march_cap: int = 0,
+    march_select: str = "scatter",
     march_group: int = 0,
     ndc_ray: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    if is_relight:
-        raise NotImplementedError("render_rays(is_relight=True): the relight "
-                                  "branch is not ported yet")
-    if 0 < march_cap < n_samples:
-        raise NotImplementedError("march_cap > 0 (occupancy-culled march)")
     if march_group > 1:
         raise NotImplementedError("march_group > 1 (grouped primary march)")
     if ndc_ray:
         raise NotImplementedError("ndc_ray=True (forward-facing NDC march)")
+    if is_relight and cfg.normals_kind in ("gt_normals",
+                                           "residue_prediction"):
+        raise NotImplementedError(f"normals_kind={cfg.normals_kind!r}")
     B = rays.shape[0]
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
     aabb = scene["aabb"]
@@ -68,6 +132,26 @@ def render_rays(
                                         step, n_samples, jitter=jitter)
     dists = z_to_dists(z_vals)
     coords = F.normalize_coord(aabb, xyz)                      # [B, S, 3]
+
+    out = {}
+    if 0 < march_cap < n_samples:
+        # the nearest-voxel test on the extra-dilated mask keeps a superset
+        # of the samples the trilinear mask keeps; the trilinear mask then
+        # gates the kept ones, so the result is the dense march's whenever
+        # no ray has more than march_cap occupied samples
+        if march_select not in ("scatter", "topk"):
+            raise ValueError(f"unknown march_select {march_select!r} "
+                             "(expected 'scatter' or 'topk')")
+        select = (select_occupied_samples_scatter if march_select == "scatter"
+                  else select_occupied_samples)
+        valid_occ = ray_valid & F.sample_alpha_mask_nearest(scene, xyz)
+        out["march_overflow_frac"] = (
+            valid_occ.sum(1) > march_cap).float().mean()
+        midx, ray_valid = select(valid_occ, march_cap)
+        coords = take_samples(coords, midx)
+        z_vals = take_samples(z_vals, midx)
+        dists = take_samples(dists, midx)
+        xyz = take_samples(xyz, midx)
     ray_valid = ray_valid & (F.sample_alpha_mask(scene, xyz) > 0)
 
     sigma_feat = F.density_feature(cfg, params, coords)
@@ -90,12 +174,15 @@ def render_rays(
         top_idx = torch.arange(S, device=rays.device).expand(B, S)
         top_w = weight
         sel_mask = weight > cfg.raymarch_weight_thres
-    pts_sel = torch.gather(coords, 1, top_idx[..., None].expand(-1, -1, 3))
+    pts_sel = take_samples(coords, top_idx)
     w_sel = top_w * sel_mask
     vdirs_sel = viewdirs[:, None, :].expand(pts_sel.shape)
     lidx_sel = light_idx[:, None].expand(B, pts_sel.shape[1])
 
-    rad_feat = F.app_feature(cfg, params, pts_sel, lidx_sel)
+    if is_relight:
+        rad_feat, intr_feat = F.both_features(cfg, params, pts_sel, lidx_sel)
+    else:
+        rad_feat = F.app_feature(cfg, params, pts_sel, lidx_sel)
     rgb = shade_radiance(cfg, params, vdirs_sel, rad_feat)     # [B, k, 3]
     rgb_map = (w_sel[..., None] * rgb).sum(-2)
 
@@ -107,8 +194,71 @@ def render_rays(
                < 0.5).to(rgb_map.dtype)
     else:
         bgw = 0.0
-    return {
-        "rgb_map": rgb_map + bgw * (1.0 - acc_map[..., None]),
-        "depth_map": depth_map + bgw * (1.0 - acc_map) * rays[:, -1],
-        "acc_map": acc_map,
-    }
+    depth_map = depth_map + bgw * (1.0 - acc_map) * rays[:, -1]
+    out.update(acc_map=acc_map, depth_map=depth_map)
+    if not is_relight:
+        out["rgb_map"] = rgb_map + bgw * (1.0 - acc_map[..., None])
+        return out
+
+    # ---- relight branch: BRDF and normals on the selected samples ----
+    brdf_in = mlps.brdf_pe_fea_inputs(pts_sel, intr_feat, cfg.pos_pe,
+                                      cfg.fea_pe)
+    brdf = torch.sigmoid(mlps.apply_mlp(params["brdf_mlp"], brdf_in))
+    albedo = brdf[..., :3]
+    roughness = brdf[..., 3:4] * 0.9 + 0.09
+
+    # the BRDF at jittered points, for the smoothness losses
+    if key is not None:
+        noise = torch.randn(pts_sel.shape, generator=key, device=rays.device,
+                            dtype=pts_sel.dtype) * 0.01
+    else:
+        noise = torch.zeros_like(pts_sel)
+    pts_jit = pts_sel + noise
+    intr_jit = F.intrin_feature(cfg, params, pts_jit)
+    brdf_jit = torch.sigmoid(mlps.apply_mlp(
+        params["brdf_mlp"],
+        mlps.brdf_pe_fea_inputs(pts_jit, intr_jit, cfg.pos_pe, cfg.fea_pe)))
+    sel = sel_mask[..., None]
+    albedo_sm = _relative_smoothness(albedo, brdf_jit[..., :3]) * sel
+    roughness_sm = _relative_smoothness(
+        roughness, brdf_jit[..., 3:4] * 0.9 + 0.09) * sel
+
+    normals_diff = torch.zeros_like(albedo_sm)
+    normals_ori = torch.zeros_like(albedo_sm)
+    if cfg.normals_kind in ("purely_derived", "derived_plus_predicted"):
+        with record_function("derived_normals"):
+            derived = F.derived_normals(
+                cfg, params, pts_sel.reshape(-1, 3)).reshape(pts_sel.shape)
+    if cfg.normals_kind == "purely_derived":
+        normals = derived
+    elif cfg.normals_kind in ("purely_predicted", "derived_plus_predicted"):
+        # the normal MLP reads the same inputs as the BRDF MLP
+        normals = torch.tanh(mlps.apply_mlp(params["normal_mlp"], brdf_in))
+        if cfg.normals_kind == "derived_plus_predicted":
+            normals_diff = ((normals - derived) ** 2).sum(
+                -1, keepdim=True) * sel
+            normals_ori = clip((vdirs_sel * normals).sum(-1, keepdim=True),
+                               0.0, None) * sel
+    else:
+        raise ValueError(cfg.normals_kind)
+
+    w1 = w_sel[..., None]
+    acc1 = (1.0 - acc_map[..., None]) * bgw
+    normal_map = (w1 * normals).sum(-2) + acc1 * normals.new_tensor(
+        [0.0, 0.0, 1.0])
+    albedo_map = (w1 * albedo).sum(-2) + acc1
+    roughness_map = (w1 * roughness).sum(-2) + acc1
+    fresnel_map = torch.full_like(albedo_map, cfg.fixed_fresnel) + acc1
+    out.update({
+        "rgb_map": linear2srgb(clip(rgb_map + acc1, 0.0, 1.0)),
+        "normal_map": safe_l2_normalize(normal_map),
+        "albedo_map": clip(albedo_map, 0.0, 1.0),
+        "roughness_map": clip(roughness_map, 0.0, 1.0),
+        "fresnel_map": clip(fresnel_map, 0.0, 1.0),
+        "normals_diff_map": (w1 * normals_diff).sum(-2),
+        "normals_orientation_loss_map": (w1 * normals_ori).sum(-2),
+        "albedo_smoothness_loss": (w1 * albedo_sm).sum(-2).mean(),
+        "roughness_smoothness_loss": (w1 * roughness_sm).sum(-2).mean(),
+        "acc_mask": acc_map > 0.5,
+    })
+    return out

@@ -1,5 +1,5 @@
 """Training step: render -> losses -> gradients -> per-group Adam (port of
-tensoir_tpu.train.step for the radiance phase).
+tensoir_tpu.train.step, for the radiance and the relight phase).
 
 ``LossWeights`` and ``StepStatic`` keep the JAX package's fields, so one
 config drives both; the knobs of paths the port does not have yet raise in
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.models import field as F
@@ -77,6 +78,17 @@ class StepStatic:
     # no march jitter, no random background
     deterministic: bool = False
 
+    def __post_init__(self):
+        # these shape only the window march, the grouped march and the
+        # window probe, none of which is ported yet
+        unported = {"second_window_back": 0, "second_prepass_n": 18,
+                    "coarse_dilate": 2, "group_bake_reso": 0,
+                    "second_window_probe_back": 0}
+        for name, default in unported.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: not ported yet")
+
 
 def compute_loss(cfg: F.FieldConfig, params, scene, batch,
                  key: Optional[torch.Generator], step: int,
@@ -86,8 +98,24 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         cfg, params, scene, batch["rays"], batch["light_idx"],
         n_samples=st.n_samples, key=None if st.deterministic else key,
         is_train=not st.deterministic, is_relight=st.is_relight,
-        white_bg=st.white_bg, app_cap=st.app_cap, march_cap=st.march_cap,
-        march_group=st.march_group, ndc_ray=st.ndc_ray)
+        white_bg=st.white_bg, sample_method=st.sample_method,
+        app_cap=st.app_cap, march_cap=st.march_cap,
+        march_select=st.march_select, march_group=st.march_group,
+        second_march_cap=st.second_march_cap,
+        secondary_use_baked=st.secondary_use_baked,
+        secondary_bake_reso=st.secondary_bake_reso,
+        second_window=st.second_window,
+        secondary_compact_frac=st.secondary_compact_frac,
+        second_march_group=st.second_march_group,
+        app_bake_reso=st.app_bake_reso,
+        secondary_app_hoist=st.secondary_app_hoist,
+        second_app_cap=st.second_app_cap,
+        app_pair_frac=st.app_pair_frac,
+        secondary_stats=st.secondary_stats,
+        second_window_probe=st.second_window_probe,
+        ndc_ray=st.ndc_ray, relight_ray_cap=st.relight_ray_cap,
+        second_n_sample=st.second_n_sample, second_near=st.second_near,
+        second_far=st.second_far, secondary_tile=st.secondary_tile)
 
     loss_rgb = ((ret["rgb_map"] - batch["rgbs"]) ** 2).mean()
     total = loss_rgb
@@ -111,9 +139,51 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
             w.tv_app * w.lr_factor ** (step + 1.0))
         total = total + tv
         metrics["loss_tv_app"] = tv
+    if st.is_relight:
+        total = total + _relight_losses(ret, batch["rgbs"], step, w, metrics)
     metrics["total_loss"] = total
     metrics["psnr"] = -10.0 * torch.log10(loss_rgb)
+    if "march_overflow_frac" in ret:
+        # rays with more occupied samples than march_cap: the culled march
+        # is exact only on the others
+        metrics["march_overflow_frac"] = ret["march_overflow_frac"]
+    if "acc_mask" in ret:
+        # the rays the reference would relight
+        metrics["n_acc_masked"] = ret["acc_mask"].float().sum()
     return total, metrics
+
+
+def _relight_losses(ret, rgb_gt, step: int, w: LossWeights, metrics):
+    """The relight phase's loss terms, added to ``metrics``; their sum."""
+    # a masked mean: surface rays left out by relight_ray_cap do not count
+    rmask = ret["relight_computed_mask"][:, None].to(rgb_gt.dtype)
+    loss_brdf = ((rmask * (ret["rgb_with_brdf_map"] - rgb_gt) ** 2).sum()
+                 / torch.clamp_min(rmask.sum() * 3.0, 1.0))
+    brdf_w = w.rgb_brdf
+    if w.rgb_brdf_warmup_iters > 0:
+        brdf_w = brdf_w * min(max(
+            (step - w.relight_start + 1.0) / w.rgb_brdf_warmup_iters, 0.0),
+            1.0)
+    total = loss_brdf * brdf_w
+    metrics["loss_rgb_brdf"] = loss_brdf
+
+    # exponential enhancement of the normal and BRDF terms
+    prog = (step - w.relight_start) / max(w.n_iters - w.relight_start, 1)
+    nw = w.normals_enhance_ratio ** prog
+    bw = w.brdf_enhance_ratio ** prog
+    terms = (
+        ("loss_normals_diff", nw * w.normals_diff,
+         ret["normals_diff_map"].mean()),
+        ("loss_normals_ori", nw * w.normals_ori,
+         ret["normals_orientation_loss_map"].mean()),
+        ("loss_rough_sm", bw * w.rough_sm, ret["roughness_smoothness_loss"]),
+        ("loss_albedo_sm", bw * w.albedo_sm, ret["albedo_smoothness_loss"]),
+    )
+    for name, weight, value in terms:
+        if weight > 0:
+            metrics[name] = weight * value
+            total = total + metrics[name]
+    return total
 
 
 def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
@@ -134,15 +204,19 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
         flat = flatten(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         live = _unflatten(leaves)
-        loss, metrics = compute_loss(cfg, live, scene, batch, key, step, st, w)
+        with record_function("forward"):
+            loss, metrics = compute_loss(cfg, live, scene, batch, key, step,
+                                         st, w)
         names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                    allow_unused=True)
+        with record_function("backward"):
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                        allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as in
         # JAX, so its moments decay and the group counts stay in step
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(names, grads)}
-        opt_state = optimizer.update(grads, opt_state, params)
+        with record_function("adam"):
+            opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return step_fn

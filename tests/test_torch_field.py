@@ -188,6 +188,19 @@ def test_geometry_helpers_match_jax():
         **FEAT)
 
 
+def test_step_size_matches_jax_bit_for_bit():
+    # the march's samples sit on the grid's half steps, so an ulp of the
+    # step decides nearest-voxel rounding ties
+    rng = np.random.default_rng(3)
+    for _ in range(300):
+        aabb = np.stack([rng.uniform(-2, -0.5, 3),
+                         rng.uniform(0.5, 2, 3)]).astype(np.float32)
+        grid = tuple(int(g) for g in rng.integers(16, 300, 3))
+        want = np.float32(JF.step_size(jnp.asarray(aabb), grid, 0.5))
+        got = np.float32(TF.step_size(t(aabb), grid, 0.5))
+        assert got == want, (aabb, grid, got, want)
+
+
 def test_bench_scene_and_sg_init_match_jax():
     jcfg = small_cfg()
     jp, _ = jax_field(jcfg, seed=3, blob=False)

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX or of tensoir_tpu, and
-runs a training step on the CPU in a process where neither can be
-imported."""
+runs a radiance and a relight training step on the CPU in a process where
+neither can be imported."""
 import re
 import subprocess
 import sys
@@ -22,8 +22,10 @@ STEP = textwrap.dedent("""
     from tensoir_tpu_torch.train.step import (LossWeights, StepStatic,
                                               make_train_step)
     from tensoir_tpu_torch.utils.bench_scene import bench_rays, seed_solid_blob
+    from tensoir_tpu_torch.models.lifecycle import update_alpha_mask
     cfg = FieldConfig(density_n_comp=(4, 4, 4), app_n_comp=(6, 6, 6),
-                      app_dim=8, feature_c=16, num_sgs=8)
+                      app_dim=8, feature_c=16, num_sgs=8, envmap_h=4,
+                      envmap_w=8)
     params, scene = init_field_params(torch.Generator().manual_seed(0), cfg,
                                       (16, 16, 16), [[-1.5] * 3, [1.5] * 3],
                                       device="cpu")
@@ -38,6 +40,18 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(1), 0)
     assert math.isfinite(float(m["total_loss"]))
     assert state["count"]["spatial"] == 1
+    # the relight phase: alpha mask, culled march, BRDF, derived normals,
+    # baked secondary march
+    scene, _ = update_alpha_mask(cfg, params, scene, (16, 16, 16))
+    step = make_train_step(cfg, opt, StepStatic(
+        n_samples=32, is_relight=True, white_bg=True, app_cap=8,
+        march_cap=16, relight_ray_cap=8, second_n_sample=16,
+        secondary_tile=128), LossWeights(l1=4e-5), device="cpu")
+    params, state, m = step(params, state, scene, batch,
+                            torch.Generator().manual_seed(2), 10000)
+    assert math.isfinite(float(m["total_loss"]))
+    assert math.isfinite(float(m["loss_rgb_brdf"]))
+    assert float(m["n_acc_masked"]) > 0
     assert not any(k == "jax" or k.startswith(("jax.", "tensoir_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")

@@ -1,7 +1,7 @@
 """The port's row kernels: the plain versions against the repo's Pallas
-kernels, the autograd pairing of gather and scatter-add, the device rules
-of the entry points, and (on a card only) each CUDA kernel against its
-plain version.
+kernels (and K1 on bf16 rows against ``jnp.take``), the autograd pairing of
+gather and scatter-add, the device rules of the entry points, and (on a
+card only) each CUDA kernel against its plain version.
 
 Tolerances: gathers copy values, so they match exactly. Scatter-adds sum
 the same f32 terms in another order than the Pallas loop: 1e-5 relative,
@@ -58,6 +58,25 @@ def test_plain_scatter_add_matches_pallas_scatter_add(C):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("C", [8, 5])
+def test_plain_bf16_gather_matches_jnp_take(C):
+    """K1 on bf16 rows (the corner-packed baked grid has C = 8) copies the
+    bits: equal to ``jnp.take`` on the same bf16 table."""
+    import jax.numpy as jnp
+    idx, table, _ = _inputs(C, seed=4)
+    jtab = jnp.asarray(table, jnp.bfloat16)
+    want = np.asarray(jnp.take(jtab, jnp.asarray(idx), axis=0))
+    ttab = torch.from_numpy(np.asarray(jtab).view(np.uint16).astype(
+        np.int16)).view(torch.bfloat16)
+    got = K.row_gather(ttab, torch.from_numpy(idx))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.uint16).astype(np.int16))
+    with pytest.raises(ValueError):     # K2 takes f32 only
+        K.gather_rows(ttab.requires_grad_(True),
+                      torch.from_numpy(idx)).float().sum().backward()
+
+
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_row_gather_gradients(idx_dtype):
     """First order: K1's backward (K2) equals autograd of ``table[idx]``.
@@ -94,8 +113,10 @@ def test_cpu_calls_launch_nothing_and_check_their_input():
     idx_np, table_np, val_np = _inputs(4, n=16)
     idx, table = torch.from_numpy(idx_np), torch.from_numpy(table_np)
     K.row_gather(table, idx)
+    K.row_gather(table.to(torch.bfloat16), idx)
     K.row_scatter_add(idx, torch.from_numpy(val_np), R)
-    assert K.LAUNCHES == {"row_gather": 0, "row_scatter_add": 0}
+    assert K.LAUNCHES == {"row_gather": 0, "row_gather_bf16": 0,
+                          "row_scatter_add": 0}
     with pytest.raises(IndexError):
         K.row_gather(table, torch.tensor([0, R], dtype=torch.int32))
     with pytest.raises(IndexError):
@@ -164,4 +185,25 @@ def test_cuda_kernels_match_plain_versions(C):
         torch.testing.assert_close(got, K.row_scatter_add_plain(idx, val, R),
                                    rtol=1e-5, atol=1e-4)
         torch.cuda.synchronize()
-        assert K.LAUNCHES == {"row_gather": 1, "row_scatter_add": 1}
+        assert K.LAUNCHES == {"row_gather": 1, "row_gather_bf16": 0,
+                              "row_scatter_add": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 3])
+def test_cuda_bf16_gather_matches_plain_version(C):
+    """Run on the card, as above. K1 on bf16 rows, exactly: 16-byte rows
+    (C = 8) take the vector route, others the per-element one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    idx_np, table_np, _ = _inputs(C, seed=5, n=5000)
+    dev = torch.device("cuda")
+    table = torch.from_numpy(table_np).to(dev, torch.bfloat16)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.from_numpy(idx_np).to(dev, dtype)
+        K.reset_launch_counts()
+        got = K.row_gather(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.row_gather_plain(table, idx))
+        assert K.LAUNCHES == {"row_gather": 0, "row_gather_bf16": 1,
+                              "row_scatter_add": 0}

@@ -27,6 +27,8 @@ from tensoir_tpu_torch import config as TC
 from tensoir_tpu_torch.models import field as TF
 from tensoir_tpu_torch.models import lifecycle as TLC
 from tensoir_tpu_torch.render.primary import render_rays as t_render_rays
+from tensoir_tpu_torch.render.train_render import \
+    render_train_batch as t_render_train_batch
 from tensoir_tpu_torch.train import optim as TO
 from tensoir_tpu_torch.train import step as TS
 
@@ -64,16 +66,34 @@ def test_render_rays_matches_jax(app_cap):
 
 
 def test_unported_paths_raise():
-    jcfg = small_cfg()
+    jcfg = small_cfg(envmap_h=2, envmap_w=4)
     tp, ts = port_field(*jax_field(jcfg))
     r, lidx, _ = _inputs()
-    for kw in (dict(is_relight=True), dict(march_cap=8),
-               dict(march_group=2), dict(ndc_ray=True)):
+    for kw in (dict(march_group=2), dict(ndc_ray=True)):
         args = dict(n_samples=S, key=None, is_relight=False)
         args.update(kw)
         with pytest.raises(NotImplementedError):
             t_render_rays(port_cfg(jcfg), tp, ts, t(r),
                           t(lidx, torch.int32), **args)
+    # the relight step runs; its fast knobs of a later slice raise
+    base = dict(n_samples=S, key=None, is_train=False, is_relight=True,
+                relight_ray_cap=4, second_n_sample=8, secondary_tile=64)
+    ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
+                               t(lidx, torch.int32), **base)
+    assert ret["rgb_with_brdf_map"].shape == (B, 3)
+    for kw in (dict(second_window=4), dict(secondary_compact_frac=0.5),
+               dict(app_bake_reso=16), dict(second_march_group=2),
+               dict(secondary_bake_reso=8),
+               dict(sample_method="importance_sample")):
+        with pytest.raises(NotImplementedError):
+            t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
+                                 t(lidx, torch.int32), **base, **kw)
+    # the window and grouped marches' own knobs raise where they are set
+    for kw in (dict(second_window_back=4), dict(second_prepass_n=8),
+               dict(coarse_dilate=3), dict(group_bake_reso=64),
+               dict(second_window_probe_back=2)):
+        with pytest.raises(NotImplementedError):
+            TS.StepStatic(n_samples=S, is_relight=True, white_bg=True, **kw)
 
 
 def _weights(lr_factor):
