@@ -3,14 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
                sm_90a), one nvcc per source, all at once
-  kernels      each kernel against its plain PyTorch version on the card, at
-               the shapes both training steps give it (K1 on bf16 rows at
-               the baked grid's and the alpha masks') and at the Pallas
-               probe's shapes: max abs error, kernel / plain / library ms,
-               and the bound (bytes moved at 3.35 TB/s)
   step_parity  one deterministic training step at a reduced size (grid 64,
                batch 512, 128 samples) on the card with the kernels and on
                the CPU with the plain versions: loss and every parameter
@@ -25,16 +20,28 @@ Phases, one JSON line each:
                configs/single_light/armadillo.txt at full width (the grid
                and march length the config gives at iteration 0, batch
                4096) on a solid-blob scene: 2 warm-up steps, then 10 timed
-               steps with the launch counts zeroed just before them; then
+               steps with the launch counts zeroed just before them (and
+               counted by shape: launches_by_shape); the second warm-up
+               step records the index stream of each kernel shape; then
                breakdown, one profiled step
   relight_train
                the relight-phase step of the same config at full width (the
                grid of the first alpha-mask update, 158^3, 547 samples,
                march cap 192, 1024 relit rays, 16x32 stratified light
                directions, 96 baked secondary samples in tiles of 16384) on
-               the blob masked by update_alpha_mask: 2 warm-up steps, then
-               10 timed steps with the counts zeroed just before them; then
-               relight_breakdown, one profiled step
+               the blob masked by update_alpha_mask: 2 warm-up steps (the
+               second records the index streams), then 10 timed steps with
+               the counts zeroed just before them; then relight_breakdown,
+               one profiled step
+  kernels      each kernel against its plain PyTorch version on the card:
+               at the shapes both training steps give it on random indices
+               (K1 on bf16 rows at the baked grid's and the alpha masks')
+               and at the Pallas probe's shapes; on the index streams the
+               two steps recorded (instep: with the streams' mean run of
+               equal indices and distinct rows); and at the edge cases of
+               every route (edge). Max abs error, kernel / plain / library
+               ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
+               bound_sector_ms (every row read as whole 32-byte sectors)
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -88,6 +95,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean ms of ``fn`` over ``reps`` eager calls (CUDA events), after
+    ``warm`` calls. Where a call is shorter than its host dispatch this is
+    the dispatch's time, not the device's."""
     import torch
     for _ in range(warm):
         fn()
@@ -102,6 +112,33 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5, warm: int = 3) -> float:
+    """Mean device ms of ``fn``: ``reps`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so that the host's
+    dispatch does not count. ``fn`` must not synchronise with the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def phase_build():
     from tensoir_tpu_torch.kernels import build
     t0 = time.perf_counter()
@@ -114,64 +151,98 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def kernel_case(R: int, C: int, N: int, seed: int) -> dict:
-    """Both kernels against their plain versions at one shape."""
+def gather_check(table, idx) -> float:
+    """K1 against its plain version, exactly; returns the max abs error."""
     import torch
     from tensoir_tpu_torch.kernels import rows
+    got = rows.row_gather(table, idx)
+    want = rows.row_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    err = (float((got.float() - want.float()).abs().max())
+           if got.numel() else 0.0)
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"row_gather {table.dtype} R={table.shape[0]} C={table.shape[1]} "
+          f"N={idx.numel()} {idx.dtype}: max abs err {err}")
+    return err
+
+
+def scatter_check(idx, val, R: int) -> tuple:
+    """K2 against its plain version within the reordering of f32 sums;
+    returns (max abs error, tolerance)."""
+    import torch
+    from tensoir_tpu_torch.kernels import rows
+    got = rows.row_scatter_add(idx, val, R)
+    want = rows.row_scatter_add_plain(idx, val, R)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    # atomics add in another order than index_add_: bound the difference of
+    # two orders of the same f32 sum of at most n_max terms
+    n_max = (int(torch.bincount(idx.long(), minlength=R).max())
+             if idx.numel() else 0)
+    tol = 2.0 * n_max * F32_EPS * (float(val.abs().max()) if val.numel()
+                                   else 0.0)
+    check(got.shape == want.shape and err <= tol,
+          f"row_scatter_add R={R} C={val.shape[1]} N={idx.numel()} "
+          f"{idx.dtype}: max abs err {err} > {tol}")
+    return err, tol
+
+
+def gather_case(table, idx) -> dict:
+    """K1 at one table and index stream: error, times and bounds."""
+    import torch
+    from tensoir_tpu_torch.kernels import rows
+    err = gather_check(table, idx)
+    row_bytes = table.shape[1] * table.element_size()
+    out = {"max_abs_err": err, "tol": 0.0,
+           "ms": graph_ms(lambda: rows.row_gather(table, idx)),
+           "eager_ms": time_ms(lambda: rows.row_gather(table, idx)),
+           "plain_ms": time_ms(lambda: rows.row_gather_plain(table, idx)),
+           "library_ms": graph_ms(lambda: torch.index_select(table, 0, idx)),
+           "bound_ms": gather_bound_ms(idx, row_bytes), "bound_by": "bytes"}
+    if table.dtype == torch.bfloat16:
+        out["bound_sector_ms"] = gather_sector_bound_ms(idx, row_bytes)
+    return out
+
+
+def scatter_case(idx, val, R: int) -> dict:
+    """K2 at one index stream and values: error, times and bound."""
+    import torch
+    from tensoir_tpu_torch.kernels import rows
+    err, tol = scatter_check(idx, val, R)
+    N, C = val.shape
+    # the scatter-add reads the index and the values and writes every
+    # output row
+    bytes_ms = (4 * N + 4 * N * C + 4 * R * C) / HBM_BYTES_PER_S * 1e3
+    ops_ms = N * C / F32_OPS_PER_S * 1e3
+    acc = torch.empty((R, C), device=val.device)
+
+    def lib_scatter():
+        acc.zero_()
+        acc.index_add_(0, idx, val)
+
+    return {"max_abs_err": err, "tol": tol,
+            "ms": graph_ms(lambda: rows.row_scatter_add(idx, val, R)),
+            "eager_ms": time_ms(lambda: rows.row_scatter_add(idx, val, R)),
+            "plain_ms": time_ms(
+                lambda: rows.row_scatter_add_plain(idx, val, R)),
+            "library_ms": graph_ms(lib_scatter),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def kernel_case(R: int, C: int, N: int, seed: int) -> dict:
+    """Both kernels against their plain versions at one shape, on random
+    indices."""
+    import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     table = torch.randn((R, C), device=dev, generator=gen)
     idx = torch.randint(0, R, (N,), device=dev, generator=gen,
                         dtype=torch.int32)
     val = torch.randn((N, C), device=dev, generator=gen)
-
-    got = rows.row_gather(table, idx)
-    want = rows.row_gather_plain(table, idx)
-    torch.cuda.synchronize()
-    g_err = float((got - want).abs().max())
-    check(g_err == 0.0, f"row_gather R={R} C={C} N={N}: max abs err {g_err}")
-
-    got = rows.row_scatter_add(idx, val, R)
-    want = rows.row_scatter_add_plain(idx, val, R)
-    torch.cuda.synchronize()
-    s_err = float((got - want).abs().max())
-    # atomics add in another order than index_add_: bound the difference of
-    # two orders of the same f32 sum of at most n_max terms
-    n_max = int(torch.bincount(idx.long(), minlength=R).max())
-    s_tol = 2.0 * n_max * F32_EPS * float(val.abs().max())
-    check(s_err <= s_tol, f"row_scatter_add R={R} C={C} N={N}: max abs err "
-          f"{s_err} > {s_tol}")
-
-    # the gather reads each distinct row it needs once; the scatter-add
-    # writes every output row
-    gather_ms = gather_bound_ms(idx, 4 * C)
-    scatter_ms = (4 * N + 4 * N * C + 4 * R * C) / HBM_BYTES_PER_S * 1e3
-    scatter_ops_ms = N * C / F32_OPS_PER_S * 1e3
-    acc = torch.empty((R, C), device=dev)
-
-    def lib_scatter():
-        acc.zero_()
-        acc.index_add_(0, idx, val)
-
-    return {
-        "R": R, "C": C, "N": N,
-        "row_gather": {
-            "max_abs_err": g_err,
-            "ms": time_ms(lambda: rows.row_gather(table, idx)),
-            "plain_ms": time_ms(lambda: rows.row_gather_plain(table, idx)),
-            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
-            "bound_ms": gather_ms, "bound_by": "bytes", "tol": 0.0},
-        "row_scatter_add": {
-            "max_abs_err": s_err,
-            "ms": time_ms(lambda: rows.row_scatter_add(idx, val, R)),
-            "plain_ms": time_ms(
-                lambda: rows.row_scatter_add_plain(idx, val, R)),
-            "library_ms": time_ms(lib_scatter),
-            "bound_ms": max(scatter_ms, scatter_ops_ms),
-            "bound_by": ("bytes" if scatter_ms >= scatter_ops_ms
-                         else "operations"),
-            "tol": s_tol},
-    }
+    return {"R": R, "C": C, "N": N,
+            "row_gather": gather_case(table, idx),
+            "row_scatter_add": scatter_case(idx, val, R)}
 
 
 def gather_bound_ms(idx, row_bytes: int) -> float:
@@ -183,28 +254,125 @@ def gather_bound_ms(idx, row_bytes: int) -> float:
     return ((4 + row_bytes) * n + row_bytes * distinct) / HBM_BYTES_PER_S * 1e3
 
 
+def gather_sector_bound_ms(idx, row_bytes: int) -> float:
+    """The same bound with every gathered row read as whole 32-byte sectors
+    from device memory, as a table larger than the 50 MB L2 costs on random
+    indices: N * (4 + row + sectors) bytes."""
+    sectors = -(-row_bytes // 32) * 32
+    return idx.numel() * (4 + row_bytes + sectors) / HBM_BYTES_PER_S * 1e3
+
+
 def bf16_gather_case(R: int, N: int, seed: int) -> dict:
     """K1 on bf16 rows of 8 corners (16 B) against its plain version,
-    exactly."""
+    exactly, on random indices."""
     import torch
-    from tensoir_tpu_torch.kernels import rows
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     table = torch.randn((R, 8), device=dev, generator=gen).to(torch.bfloat16)
     idx = torch.randint(0, R, (N,), device=dev, generator=gen,
                         dtype=torch.int32)
-    got = rows.row_gather(table, idx)
-    want = rows.row_gather_plain(table, idx)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    check(torch.equal(got, want), f"row_gather_bf16 R={R} N={N}: max abs "
-          f"err {err}")
-    return {"R": R, "C": 8, "N": N, "max_abs_err": err, "tol": 0.0,
-            "ms": time_ms(lambda: rows.row_gather(table, idx)),
-            "plain_ms": time_ms(lambda: rows.row_gather_plain(table, idx)),
-            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
-            "bound_ms": gather_bound_ms(idx, 16), "bound_by": "bytes",
+    return {"R": R, "C": 8, "N": N, **gather_case(table, idx),
             "table_mb": R * 16 / 1e6}
+
+
+def run_stats(idx) -> dict:
+    """Mean length of the runs of equal consecutive indices, and the number
+    of distinct rows, of one index stream."""
+    import torch
+    n = idx.numel()
+    runs = 1 + int((idx[1:] != idx[:-1]).sum()) if n else 0
+    return {"mean_run": n / runs if runs else 0.0,
+            "distinct": torch.unique(idx).numel()}
+
+
+def instep_cases(streams) -> list:
+    """Each kernel on the index streams one training step fed it (recorded
+    by ``kernel_calls``), on random tables and values of the step's shapes:
+    K1 exactly, K2 within its tolerance."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = []
+    for (path, name, R, C, N), idx in sorted(streams.items()):
+        case = {"path": path, "kernel": name, "R": R, "C": C, "N": N,
+                **run_stats(idx)}
+        if name == "row_scatter_add":
+            val = torch.randn((N, C), device=dev, generator=gen)
+            case.update(scatter_case(idx, val, R))
+        else:
+            dtype = (torch.bfloat16 if name == "row_gather_bf16"
+                     else torch.float32)
+            table = torch.randn((R, C), device=dev, generator=gen).to(dtype)
+            case.update(gather_case(table, idx))
+        out.append(case)
+    return out
+
+
+EDGE_N = (0, 1, 31, 257, 5000)
+EDGE_PATTERNS = ("runs", "chunk", "long", "ends")
+
+
+def index_pattern(kind: str, R: int, N: int, rng) -> np.ndarray:
+    """Index streams that stress the kernels' edges: random; runs of equal
+    indices of lengths 1-40 (``runs``); random with one index through a
+    whole 256-entry chunk (``chunk``); one index throughout, runs longer
+    than a chunk (``long``); only the first and last row (``ends``)."""
+    if kind == "random":
+        return rng.integers(0, R, size=N)
+    if kind == "runs":
+        lengths = rng.integers(1, 41, size=N)
+        return np.repeat(rng.integers(0, R, size=N), lengths)[:N]
+    if kind == "chunk":
+        idx = rng.integers(0, R, size=N)
+        idx[256:512] = rng.integers(0, R)
+        return idx
+    if kind == "long":
+        return np.full(N, rng.integers(0, R))
+    if kind == "ends":
+        return rng.choice(np.array([0, R - 1]), size=N)
+    raise ValueError(kind)
+
+
+def edge_cases() -> dict:
+    """K1 (f32 and bf16 rows) and K2 against their plain versions at the
+    widths and lengths each route's edges meet: C in {3, 4, 8, 16, 64, 192}
+    f32 and {3, 8, 16, 32} bf16 (scalar, narrow and wide routes), int32 and
+    int64, N in EDGE_N on random indices, the clustered patterns at N 5000,
+    and tables and values one element off 16-byte alignment (scalar route).
+    K1 exactly, K2 within its tolerance; fails on the first disagreement."""
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(30)
+    R = 97
+    n_cases, worst = 0, 0.0
+
+    def tensor(shape, dtype, misaligned):
+        n = int(np.prod(shape))
+        flat = torch.as_tensor(rng.normal(size=n + 1).astype(np.float32),
+                               device=dev).to(dtype)
+        return (flat[1:] if misaligned else flat[:n]).view(*shape)
+
+    plan = [(kind, n, False) for n in EDGE_N for kind in ("random",)]
+    plan += [(kind, 5000, False) for kind in EDGE_PATTERNS]
+    plan += [("random", 5000, True), ("runs", 5000, True)]
+    for dtype, widths in ((torch.float32, (3, 4, 8, 16, 64, 192)),
+                          (torch.bfloat16, (3, 8, 16, 32))):
+        for C in widths:
+            for kind, N, mis in plan:
+                idx_np = index_pattern(kind, R, N, rng)
+                table = tensor((R, C), dtype, mis)
+                val = tensor((N, C), torch.float32, mis)
+                for idt in (torch.int32, torch.int64):
+                    idx = torch.as_tensor(idx_np, device=dev).to(idt)
+                    gather_check(table, idx)
+                    if dtype == torch.float32:
+                        err, tol = scatter_check(idx, val, R)
+                        if tol > 0:
+                            worst = max(worst, err / tol)
+                    n_cases += 1
+    return {"cases": n_cases, "scatter_worst_err_over_tol": worst,
+            "patterns": ["random", *EDGE_PATTERNS], "N": list(EDGE_N),
+            "misaligned": ["random", "runs"]}
 
 
 def slice_sizes():
@@ -216,7 +384,9 @@ def slice_sizes():
     return cfg, reso, n_samples
 
 
-def phase_kernels():
+def phase_kernels(streams):
+    """Random-index cases at both steps' shapes and the probe's, the index
+    streams the steps recorded (``streams``) and the edge cases."""
     cfg, reso, n_samples = slice_sizes()
     _, rreso, _ = relight_sizes(cfg)
     plane_rows = (reso[0] - 1) * (reso[1] - 1)
@@ -250,6 +420,8 @@ def phase_kernels():
         "alpha_mask": bf16_gather_case(cells, BATCH * cfg.march_cap_primary,
                                        seed=11),
         "train_alpha_mask": bf16_gather_case(1, BATCH * n_samples, seed=12)}
+    out["instep"] = instep_cases(streams)
+    out["edge"] = edge_cases()
     emit({"phase": "kernels", "ok": True, "cases": out})
     return out
 
@@ -370,7 +542,55 @@ def phase_step_parity():
     check(not over, f"step_parity parameters over 1e-4: {over}")
 
 
-def phase_train():
+@contextlib.contextmanager
+def kernel_calls(path: str, counts: dict, streams=None):
+    """Count the row kernels' launches by shape into ``counts`` while the
+    block runs, keyed (path, kernel, R, C, N); with ``streams``, also keep
+    each shape's first index stream there. Wraps the port's call sites: the
+    module functions that ``gather_rows`` and its backward call, and the
+    name ``models.field`` imported. Only calls that launch (N > 0) count."""
+    import torch
+    from tensoir_tpu_torch.kernels import rows
+    from tensoir_tpu_torch.models import field as field_mod
+    gather, scatter = rows.row_gather, rows.row_scatter_add
+
+    def note(name, R, C, idx):
+        if idx.numel() == 0:
+            return
+        key = (path, name, int(R), int(C), idx.numel())
+        counts[key] = counts.get(key, 0) + 1
+        if streams is not None and key not in streams:
+            streams[key] = idx.detach().clone()
+
+    def counted_gather(table, idx):
+        note("row_gather_bf16" if table.dtype == torch.bfloat16
+             else "row_gather", *table.shape, idx)
+        return gather(table, idx)
+
+    def counted_scatter(idx, val, num_rows):
+        note("row_scatter_add", num_rows, val.shape[1], idx)
+        return scatter(idx, val, num_rows)
+
+    rows.row_gather = field_mod.row_gather = counted_gather
+    rows.row_scatter_add = counted_scatter
+    try:
+        yield
+    finally:
+        rows.row_gather = field_mod.row_gather = gather
+        rows.row_scatter_add = scatter
+
+
+def by_shape(counts: dict, steps: int) -> list:
+    """Launches per step at each shape, from ``kernel_calls`` counts."""
+    return [{"kernel": name, "R": R, "C": C, "N": N,
+             "launches_per_step": n / steps}
+            for (_, name, R, C, N), n in sorted(counts.items())]
+
+
+def phase_train(streams):
+    """The radiance step at full width; records its index streams (second
+    warm-up step) into ``streams``; returns (launch counts, launches by
+    shape) of its 10 timed steps."""
     import torch
     from tensoir_tpu_torch import config as C
     from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
@@ -384,19 +604,21 @@ def phase_train():
     batch = batch_of(BATCH, "cuda")
     key = torch.Generator(device="cuda").manual_seed(1)
     it = 0
-    for _ in range(2):
-        params, state, m = step_fn(params, state, scene, batch, key, it)
-        it += 1
+    params, state, m = step_fn(params, state, scene, batch, key, it)
+    with kernel_calls("train", {}, streams):
+        params, state, m = step_fn(params, state, scene, batch, key, it + 1)
+    it += 2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses = []
+    losses, shapes = [], {}
     reset_launch_counts()
     t0 = time.perf_counter()
-    for _ in range(10):
-        params, state, m = step_fn(params, state, scene, batch, key, it)
-        losses.append(m["total_loss"])
-        it += 1
-    torch.cuda.synchronize()
+    with kernel_calls("train", shapes):
+        for _ in range(10):
+            params, state, m = step_fn(params, state, scene, batch, key, it)
+            losses.append(m["total_loss"])
+            it += 1
+        torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
     launches = dict(LAUNCHES)
     losses = [float(x) for x in losses]
@@ -404,7 +626,7 @@ def phase_train():
            "batch": BATCH, "points_per_step": BATCH * n_samples,
            "step_ms": step_ms, "loss_first": losses[0],
            "loss_last": losses[-1], "losses": losses,
-           "launches": launches,
+           "launches": launches, "launches_by_shape": by_shape(shapes, 10),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "psnr_last": float(m["psnr"])}
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -418,7 +640,7 @@ def phase_train():
 
     emit_breakdown("breakdown", lambda: step_fn(params, state, scene, batch,
                                                 key, it), step_ms)
-    return launches
+    return launches, shapes
 
 
 # the record_function ranges of the step (train/step.py, render/*.py)
@@ -667,9 +889,10 @@ def phase_relight_step_parity():
     check(not fails, "relight_step_parity: " + "; ".join(fails))
 
 
-def phase_relight_train():
-    """The relight step at full width; returns the launch counts of its 10
-    timed steps."""
+def phase_relight_train(streams):
+    """The relight step at full width; records its index streams (second
+    warm-up step) into ``streams``; returns (launch counts, launches by
+    shape) of its 10 timed steps."""
     import torch
     from tensoir_tpu_torch import config as C
     from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
@@ -687,20 +910,22 @@ def phase_relight_train():
     batch = batch_of(BATCH, "cuda")
     key = torch.Generator(device="cuda").manual_seed(1)
     it = cfg.update_AlphaMask_list[0]
-    for _ in range(2):
-        params, state, m = step_fn(params, state, scene, batch, key, it)
-        it += 1
+    params, state, m = step_fn(params, state, scene, batch, key, it)
+    with kernel_calls("relight_train", {}, streams):
+        params, state, m = step_fn(params, state, scene, batch, key, it + 1)
+    it += 2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mets = []
+    mets, shapes = [], {}
     reset_launch_counts()
     secondary.reset_march_counts()
     t0 = time.perf_counter()
-    for _ in range(10):
-        params, state, m = step_fn(params, state, scene, batch, key, it)
-        mets.append(m)
-        it += 1
-    torch.cuda.synchronize()
+    with kernel_calls("relight_train", shapes):
+        for _ in range(10):
+            params, state, m = step_fn(params, state, scene, batch, key, it)
+            mets.append(m)
+            it += 1
+        torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
     launches = dict(LAUNCHES)
     marched = dict(secondary.MARCHED)
@@ -721,7 +946,7 @@ def phase_relight_train():
            "march_overflow_frac": float(mets[-1]["march_overflow_frac"]),
            "secondary_pairs_marched": marched["pairs"],
            "secondary_tiles_marched": marched["tiles"],
-           "launches": launches,
+           "launches": launches, "launches_by_shape": by_shape(shapes, 10),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "psnr_last": float(mets[-1]["psnr"])}
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
@@ -739,7 +964,7 @@ def phase_relight_train():
     emit_breakdown("relight_breakdown",
                    lambda: step_fn(params, state, scene, batch, key, it),
                    step_ms)
-    return launches
+    return launches, shapes
 
 
 # each path's own shape for each kernel: the lookup that moves the most
@@ -755,9 +980,10 @@ PATH_CASES = {
 }
 
 
-def kernel_summary(cases, launches) -> list:
+def kernel_summary(cases, launches, shapes) -> list:
     """One entry per kernel: the relight path's launches beside its own
-    shape and times, and each path's under ``by_path``."""
+    shape and times, and each path's under ``by_path`` with the launches at
+    that shape (``launches_at_shape``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []
@@ -768,7 +994,9 @@ def kernel_summary(cases, launches) -> list:
             c = cases[group][sub]
             # a bf16 case holds its own shape, an f32 one its group's
             shape = c if group == "bf16" else cases[group]
+            at = (path, name, shape["R"], shape["C"], shape["N"])
             by_path[path] = {"launches": launches[path][name],
+                             "launches_at_shape": shapes.get(at, 0),
                              "shape": {k: shape[k] for k in ("R", "C", "N")},
                              **{k: c[k] for k in keys}}
         main_path = by_path["relight_train"]
@@ -797,17 +1025,20 @@ def main() -> int:
     from tensoir_tpu_torch import resolve_device
     resolve_device("cuda")
     t_start = time.perf_counter()
+    streams, launches, shapes = {}, {}, {}
     try:
         phase_build()
-        cases = phase_kernels()
         phase_step_parity()
         phase_relight_step_parity()
-        launches = {"train": phase_train(),
-                    "relight_train": phase_relight_train()}
+        for path, run in (("train", phase_train),
+                          ("relight_train", phase_relight_train)):
+            launches[path], counts = run(streams)
+            shapes.update(counts)
+        cases = phase_kernels(streams)
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1
-    emit({"kernels": kernel_summary(cases, launches)})
+    emit({"kernels": kernel_summary(cases, launches, shapes)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -32,26 +32,56 @@ def _pallas_probe():
     return mod
 
 
-def _inputs(C, seed=0, n=N):
+def _index_pattern(pattern, rng, n, num_rows=R):
+    """Index streams of the shapes the kernels meet: ``random``; ``runs`` of
+    equal consecutive indices of lengths 1-40 (a ray's samples in one plane
+    cell); ``chunk``, random with one index through the whole second chunk
+    of CHUNK entries; ``long``, one index throughout (runs longer than a
+    chunk); ``ends``, only the first and the last row."""
+    if pattern == "random":
+        idx = rng.integers(0, num_rows, size=(n,))
+    elif pattern == "runs":
+        lengths = rng.integers(1, 41, size=(n,))
+        idx = np.repeat(rng.integers(0, num_rows, size=(n,)), lengths)[:n]
+    elif pattern == "chunk":
+        idx = rng.integers(0, num_rows, size=(n,))
+        idx[CHUNK:2 * CHUNK] = rng.integers(0, num_rows)
+    elif pattern == "long":
+        idx = np.full((n,), rng.integers(0, num_rows))
+    elif pattern == "ends":
+        idx = rng.choice(np.array([0, num_rows - 1]), size=(n,))
+    else:
+        raise ValueError(pattern)
+    return idx.astype(np.int32)
+
+
+def _inputs(C, seed=0, n=N, pattern="random"):
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, R, size=(n,)).astype(np.int32)
+    idx = _index_pattern(pattern, rng, n)
     table = rng.normal(size=(R, C)).astype(np.float32)
     val = rng.normal(size=(n, C)).astype(np.float32)
     return idx, table, val
 
 
-@pytest.mark.parametrize("C", [64, 192])
-def test_plain_gather_matches_pallas_gather(C):
-    idx, table, _ = _inputs(C)
+# each width on random indices (ids "64", "192") and on the clustered and
+# edge streams
+_PALLAS_CASES = [pytest.param(C, p, id=str(C) if p == "random" else f"{C}-{p}")
+                 for C in (64, 192)
+                 for p in ("random", "runs", "chunk", "ends")]
+
+
+@pytest.mark.parametrize("C,pattern", _PALLAS_CASES)
+def test_plain_gather_matches_pallas_gather(C, pattern):
+    idx, table, _ = _inputs(C, pattern=pattern)
     gather = _pallas_probe().make_gather(R, C, CHUNK, interpret=True)
     want = np.asarray(gather(idx, table))
     got = K.row_gather(torch.from_numpy(table), torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("C", [64, 192])
-def test_plain_scatter_add_matches_pallas_scatter_add(C):
-    idx, _, val = _inputs(C, seed=1)
+@pytest.mark.parametrize("C,pattern", _PALLAS_CASES)
+def test_plain_scatter_add_matches_pallas_scatter_add(C, pattern):
+    idx, _, val = _inputs(C, seed=1, pattern=pattern)
     scatter = _pallas_probe().make_scatter_add(R, C, CHUNK, interpret=True)
     want = np.asarray(scatter(idx, val))
     got = K.row_scatter_add(torch.from_numpy(idx), torch.from_numpy(val), R)
@@ -164,7 +194,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [3, 64, 192])
+@pytest.mark.parametrize("C", [3, 8, 64, 192])
 def test_cuda_kernels_match_plain_versions(C):
     """Run on the card: ``python -m pytest tests/test_torch_kernels.py -m
     cuda --noconftest`` (the suite's conftest needs JAX). K1 exactly; K2
@@ -187,6 +217,46 @@ def test_cuda_kernels_match_plain_versions(C):
         torch.cuda.synchronize()
         assert K.LAUNCHES == {"row_gather": 1, "row_gather_bf16": 0,
                               "row_scatter_add": 1}
+
+
+def _misaligned(a, dev, dtype, misaligned):
+    """``a`` on the card, contiguous, one element past a 16-byte boundary
+    when ``misaligned`` (the kernels' scalar routes)."""
+    flat = torch.zeros(a.size + 1, device=dev, dtype=dtype)
+    view = flat[1:] if misaligned else flat[:-1]
+    view.copy_(torch.from_numpy(a.reshape(-1)).to(dev, dtype))
+    return view.view(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 8, 64, 192])
+@pytest.mark.parametrize("n,pattern,misaligned", [
+    (0, "random", False), (1, "random", False), (31, "random", False),
+    (257, "runs", False), (5000, "runs", False), (5000, "chunk", False),
+    (5000, "long", False), (5000, "ends", False), (5000, "runs", True)])
+def test_cuda_kernels_at_their_edges(C, n, pattern, misaligned):
+    """Run on the card, as above. Both kernels (K1 on f32 and bf16 rows)
+    at lengths that are not a multiple of a block's rows, on clustered
+    streams (runs within and across chunks, the first and last row), with
+    int32 and int64 indices, and on tables and values off 16-byte alignment:
+    K1 exactly, K2 within the reordering of f32 sums (1e-5 relative, and
+    1e-5 absolute per term of the longest sum)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    idx_np, table_np, val_np = _inputs(C, seed=6, n=n, pattern=pattern)
+    dev = torch.device("cuda")
+    val = _misaligned(val_np, dev, torch.float32, misaligned)
+    n_max = int(np.bincount(idx_np, minlength=R).max()) if n else 0
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.from_numpy(idx_np).to(dev, dtype)
+        for tdt in (torch.float32, torch.bfloat16):
+            table = _misaligned(table_np, dev, tdt, misaligned)
+            got = K.row_gather(table, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, K.row_gather_plain(table, idx))
+        got = K.row_scatter_add(idx, val, R)
+        torch.testing.assert_close(got, K.row_scatter_add_plain(idx, val, R),
+                                   rtol=1e-5, atol=1e-5 * max(n_max, 1))
 
 
 @pytest.mark.cuda
