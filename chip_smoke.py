@@ -16,6 +16,14 @@ Phases, one JSON line each, in this order:
                gradient, and the baked sigma grid, with the step's per-tile
                pair cap, with the card's pair choice replayed on the CPU,
                and with the cap lifted
+  bench_step_parity
+               one deterministic step of bench.py's configuration at its CPU
+               sizes (grid 48, batch 256, 4x8 directions, tile 1024, window
+               12/4, app bake 32) with the sigma bake cut to 32, on the card
+               and on the CPU: as relight_step_parity (the pair-choice
+               replay covers the hemisphere compaction too), both bf16
+               bakes, the coarse occupancy, and the window march's indices
+               from the same tables
   train        the radiance-phase training step of
                configs/single_light/armadillo.txt at full width (the grid
                and march length the config gives at iteration 0, batch
@@ -33,11 +41,23 @@ Phases, one JSON line each, in this order:
                second records the index streams), then 10 timed steps with
                the counts zeroed just before them; then relight_breakdown,
                one profiled step
+  bench_train  bench.py's fast-knob relight step at full width (grid 200,
+               700 samples, march cap 192, 4096 relit rays x 16x32
+               directions, 96 secondary samples, window 48/16 over the
+               coarse occupancy (prepass 8, dilate 3), compaction 0.5625
+               into 36 tiles of 32768, sigma bake 128, app bake 64, caps
+               12 and 0.4375) on the blob masked at 128^3: 2 warm-up steps
+               (the second records the index streams), 10 timed steps with
+               the counts zeroed just before them (step_ms, rays_per_s as
+               bench.py counts them); then bench_breakdown, one profiled
+               step, and bench_secondary_stats, one step with the
+               secondary statistics on
   kernels      each kernel against its plain PyTorch version on the card:
-               at the shapes both training steps give it on random indices
-               (K1 on bf16 rows at the baked grid's and the alpha masks')
+               at the shapes the training steps give it on random indices
+               (K1 on bf16 rows at the baked grids', the app bake's and the
+               alpha masks')
                and at the Pallas probe's shapes; on the index streams the
-               two steps recorded (instep: with the streams' mean run of
+               steps recorded (instep: with the streams' mean run of
                equal indices and distinct rows); and at the edge cases of
                every route (edge). Max abs error, kernel / plain / library
                ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
@@ -262,17 +282,17 @@ def gather_sector_bound_ms(idx, row_bytes: int) -> float:
     return idx.numel() * (4 + row_bytes + sectors) / HBM_BYTES_PER_S * 1e3
 
 
-def bf16_gather_case(R: int, N: int, seed: int) -> dict:
-    """K1 on bf16 rows of 8 corners (16 B) against its plain version,
-    exactly, on random indices."""
+def bf16_gather_case(R: int, N: int, seed: int, C: int = 8) -> dict:
+    """K1 on bf16 rows (8 corners, 16 B, or the app bake's 8 x 27, 432 B)
+    against its plain version, exactly, on random indices."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.randn((R, 8), device=dev, generator=gen).to(torch.bfloat16)
+    table = torch.randn((R, C), device=dev, generator=gen).to(torch.bfloat16)
     idx = torch.randint(0, R, (N,), device=dev, generator=gen,
                         dtype=torch.int32)
-    return {"R": R, "C": 8, "N": N, **gather_case(table, idx),
-            "table_mb": R * 16 / 1e6}
+    return {"R": R, "C": C, "N": N, **gather_case(table, idx),
+            "table_mb": R * C * 2 / 1e6}
 
 
 def run_stats(idx) -> dict:
@@ -336,7 +356,8 @@ def index_pattern(kind: str, R: int, N: int, rng) -> np.ndarray:
 def edge_cases() -> dict:
     """K1 (f32 and bf16 rows) and K2 against their plain versions at the
     widths and lengths each route's edges meet: C in {3, 4, 8, 16, 64, 192}
-    f32 and {3, 8, 16, 32} bf16 (scalar, narrow and wide routes), int32 and
+    f32 and {3, 8, 16, 32, 216} bf16 (scalar, narrow and wide routes; 216
+    is the app bake's row), int32 and
     int64, N in EDGE_N on random indices, the clustered patterns at N 5000,
     and tables and values one element off 16-byte alignment (scalar route).
     K1 exactly, K2 within its tolerance; fails on the first disagreement."""
@@ -356,7 +377,7 @@ def edge_cases() -> dict:
     plan += [(kind, 5000, False) for kind in EDGE_PATTERNS]
     plan += [("random", 5000, True), ("runs", 5000, True)]
     for dtype, widths in ((torch.float32, (3, 4, 8, 16, 64, 192)),
-                          (torch.bfloat16, (3, 8, 16, 32))):
+                          (torch.bfloat16, (3, 8, 16, 32, 216))):
         for C in widths:
             for kind, N, mis in plan:
                 idx_np = index_pattern(kind, R, N, rng)
@@ -404,6 +425,10 @@ def phase_kernels(streams):
         "relight_app": (rplane_rows, app_c, BATCH * cfg.app_cap_per_ray),
         "relight_second_app": (rplane_rows, app_c, cfg.secondary_tile // 4
                                * cfg.second_app_cap),
+        # bench.py's step (grid 200: 199^2 packed plane rows): the culled
+        # primary march's density lookup and the appearance lookup
+        "bench_density": (39601, sigma_c, BATCH * 192),
+        "bench_app": (39601, app_c, BATCH * 32),
         # the Pallas probe's own shapes (scripts/bench_pallas_scatter.py)
         "probe_w64": (39601, 64, 2359296),
         "probe_w192": (39601, 192, 2359296 // 4),
@@ -419,7 +444,15 @@ def phase_kernels(streams):
                                        * cfg.second_nSample, seed=10),
         "alpha_mask": bf16_gather_case(cells, BATCH * cfg.march_cap_primary,
                                        seed=11),
-        "train_alpha_mask": bf16_gather_case(1, BATCH * n_samples, seed=12)}
+        "train_alpha_mask": bf16_gather_case(1, BATCH * n_samples, seed=12),
+        # bench.py's step: the 127^3 sigma bake at one tile of 32768 pairs x
+        # 48 window samples, the 127^3 alpha mask at the culled march, and
+        # the 63^3 app bake (8 corners x 27 features) at the tile's 14336
+        # kept pairs x 12 samples (the wide-row route)
+        "bench_sigma_bake": bf16_gather_case(127 ** 3, 32768 * 48, seed=13),
+        "bench_alpha_mask": bf16_gather_case(127 ** 3, BATCH * 192, seed=14),
+        "bench_app_bake": bf16_gather_case(63 ** 3, 14336 * 12, seed=15,
+                                           C=8 * 27)}
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
     emit({"phase": "kernels", "ok": True, "cases": out})
@@ -723,10 +756,11 @@ def _bake_agreement(cfg, b_gpu, b_cpu):
 
 @contextlib.contextmanager
 def _pair_choice(record=None, replay=None):
-    """Record the secondary pass's choice of pairs for the app stage (the
-    ``primary.compact_nonzero`` call each tile of ``compute_radiance``
-    makes) into the list ``record``, or hand out the choices in ``replay``
-    in their place."""
+    """Record the secondary pass's choices of pairs (every
+    ``primary.compact_nonzero`` call: the hemisphere compaction's, when it
+    is on, then the app-stage pair cap's of each tile of
+    ``compute_radiance``) into the list ``record``, or hand out the choices
+    in ``replay`` in their place, in the same order."""
     from tensoir_tpu_torch.render import primary
     choose = primary.compact_nonzero
     replay = None if replay is None else list(replay)
@@ -749,32 +783,30 @@ def _pair_choice(record=None, replay=None):
     check(not replay, "pair choices left over after the replayed step")
 
 
-def _relight_step_on(dev, fcfg, cfg, params0, scene0, small, n_samples,
-                     n_rays, record=None, replay=None):
-    """One deterministic relight step on ``dev`` from a copy of the CPU
-    field: (loss, n_acc_masked, parameters, gradients, bf16 bake), all on
-    the CPU. ``record`` / ``replay`` as in _pair_choice."""
+def _step_on(dev, params0, scene0, make, n_rays, step, bakes, record=None,
+             replay=None):
+    """One deterministic step on ``dev`` from a copy of the CPU field: (loss,
+    n_acc_masked, parameters, gradients, the tables ``bakes(params, scene)``
+    makes before the step), all on the CPU. ``make(dev)`` builds (optimizer,
+    step function); ``record`` / ``replay`` as in _pair_choice."""
     import copy
-    from tensoir_tpu_torch.models.field import bake_packed_sigma_grid
     from tensoir_tpu_torch.train.optim import flatten
     # a copy each: the step updates its parameters in place
     params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                   if isinstance(v, dict) else v.to(dev))
               for k, v in copy.deepcopy(params0).items()}
     scene = {k: v.to(dev) for k, v in scene0.items()}
-    baked = bake_packed_sigma_grid(fcfg, params, scene).cpu()
-    opt, step_fn = make_step(fcfg, cfg, n_samples, True, dev, relight=True,
-                             **small)
+    tables = [b.cpu() for b in bakes(params, scene)]
+    opt, step_fn = make(dev)
     state = opt.init(params)
     with _pair_choice(record, replay):
         params, state, m = step_fn(params, state, scene,
-                                   batch_of(n_rays, dev), None,
-                                   cfg.update_AlphaMask_list[0])
+                                   batch_of(n_rays, dev), None, step)
     # Adam's first moment after one step is (1 - b1) * grad
     grads = {k: v.cpu() / 0.1 for k, v in state["mu"].items()}
     return (float(m["total_loss"]), float(m["n_acc_masked"]),
             {k: v.detach().cpu() for k, v in flatten(params).items()},
-            grads, baked)
+            grads, tables)
 
 
 def _grad_rel_err(g_gpu, g_cpu) -> dict:
@@ -829,6 +861,7 @@ def phase_relight_step_parity():
       replayed variant holds them;
     - the bf16 bake 1 bf16 ulp, as _bake_agreement says."""
     from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.models.field import bake_packed_sigma_grid
     loss_tol, grad_tol = 1e-4, 1e-3
     cfg, _, _ = slice_sizes()
     fcfg = C.field_config_from(cfg, NEAR_FAR)
@@ -839,9 +872,36 @@ def phase_relight_step_parity():
     lifted = dict(capped, app_pair_frac=1.0)
 
     def run(dev, small, **kw):
-        return _relight_step_on(dev, fcfg, cfg, params0, scene0, small,
-                                n_samples, n_rays, **kw)
+        return _step_on(
+            dev, params0, scene0,
+            lambda d: make_step(fcfg, cfg, n_samples, True, d, relight=True,
+                                **small),
+            n_rays, cfg.update_AlphaMask_list[0],
+            lambda p, s: [bake_packed_sigma_grid(fcfg, p, s)], **kw)
 
+    res, fails, runs = _capped_parity(run, capped, lifted, ray_cap, n_rays,
+                                      cfg.rgb_brdf_weight, loss_tol, grad_tol)
+    k_gpu, k_cpu = runs["lifted"][0][4][0], runs["lifted"][1][4][0]
+    bake_over, bake_ulp, bake_edge = _bake_agreement(fcfg, k_gpu, k_cpu)
+    if bake_over:
+        fails.append(f"bake: {bake_over} entries over 1 bf16 ulp")
+    emit({"phase": "relight_step_parity", "ok": not fails, "fails": fails,
+          "variants": res,
+          "n_params": sum(v.numel() for v in runs["lifted"][1][2].values()),
+          "bake_entries": k_cpu.numel(), "bake_over_1ulp": bake_over,
+          "bake_1ulp_apart": bake_ulp, "bake_mask_edge": bake_edge,
+          "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol,
+                  "bake_ulp": 1}})
+    check(not fails, "relight_step_parity: " + "; ".join(fails))
+
+
+def _capped_parity(run, capped, lifted, ray_cap, n_rays, brdf_weight,
+                   loss_tol, grad_tol):
+    """Run ``run(dev, knobs, record=, replay=)`` on the card and the CPU with
+    the step's caps (``capped``), with the card's pair choice replayed on
+    the CPU, and with the cap lifted (``lifted``); hold each variant as
+    phase_relight_step_parity says. Returns (per-variant results, failures,
+    the runs)."""
     rec_gpu, rec_cpu = [], []
     runs = {"lifted": (run("cuda", lifted), run("cpu", lifted)),
             "capped": (run("cuda", capped, record=rec_gpu),
@@ -861,10 +921,10 @@ def phase_relight_step_parity():
         if name == "capped":
             swapped = _pairs_swapped(rec_gpu, rec_cpu)
             n_comp = min(ray_cap, n_acc) + n_rays - n_acc
-            tol = loss_tol + (cfg.rgb_brdf_weight * 0.25 * swapped / n_comp
+            tol = loss_tol + (brdf_weight * 0.25 * swapped / n_comp
                               / abs(l_cpu))
             r.update(pairs_swapped=swapped, n_computed=n_comp,
-                     loss_rel_tol=tol)
+                     loss_rel_tol=tol, pair_choices=len(rec_gpu))
             if not (math.isfinite(l_gpu) and rel <= tol):
                 fails.append(f"capped loss {l_gpu} vs {l_cpu}: {rel} > {tol}")
         else:
@@ -875,18 +935,7 @@ def phase_relight_step_parity():
             if over:
                 fails.append(f"{name} gradients over {grad_tol}: {over}")
         res[name] = r
-    k_gpu, k_cpu = runs["lifted"][0][4], runs["lifted"][1][4]
-    bake_over, bake_ulp, bake_edge = _bake_agreement(fcfg, k_gpu, k_cpu)
-    if bake_over:
-        fails.append(f"bake: {bake_over} entries over 1 bf16 ulp")
-    emit({"phase": "relight_step_parity", "ok": not fails, "fails": fails,
-          "variants": res,
-          "n_params": sum(v.numel() for v in runs["lifted"][1][2].values()),
-          "bake_entries": k_cpu.numel(), "bake_over_1ulp": bake_over,
-          "bake_1ulp_apart": bake_ulp, "bake_mask_edge": bake_edge,
-          "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol,
-                  "bake_ulp": 1}})
-    check(not fails, "relight_step_parity: " + "; ".join(fails))
+    return res, fails, runs
 
 
 def phase_relight_train(streams):
@@ -967,6 +1016,288 @@ def phase_relight_train(streams):
     return launches, shapes
 
 
+def bench_setup(full: bool = True):
+    """bench.py's configuration: its FieldConfig, StepStatic fields and
+    LossWeights, at full width (bench.py:48-149) or at its CPU sizes
+    (bench.py:95-101), and the alpha mask's resolution (128, or 24)."""
+    from tensoir_tpu_torch.models.field import FieldConfig
+    from tensoir_tpu_torch.train.step import LossWeights
+    if full:
+        sizes = dict(B=4096, grid=200, n_samples=700, relight_cap=4096,
+                     env=(16, 32), second_n=96, tile=32768, window=48,
+                     window_back=16, app_bake=64, mask=128)
+    else:
+        sizes = dict(B=256, grid=48, n_samples=64, relight_cap=256,
+                     env=(4, 8), second_n=16, tile=1024, window=12,
+                     window_back=4, app_bake=32, mask=24)
+    fcfg = FieldConfig(density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48),
+                       app_dim=27, shading_mode="MLP_Fea",
+                       normals_kind="derived_plus_predicted", light_kind="sg",
+                       num_sgs=128, envmap_h=sizes["env"][0],
+                       envmap_w=sizes["env"][1], feature_c=128,
+                       step_ratio=0.5)
+    st = dict(n_samples=sizes["n_samples"], is_relight=True, white_bg=True,
+              app_cap=32, relight_ray_cap=sizes["relight_cap"],
+              march_cap=192, march_select="scatter", second_march_cap=32,
+              secondary_use_baked=True, secondary_bake_reso=128,
+              second_window=sizes["window"],
+              second_window_back=sizes["window_back"], second_prepass_n=8,
+              coarse_dilate=3, secondary_compact_frac=0.5625,
+              app_bake_reso=sizes["app_bake"], second_app_cap=12,
+              app_pair_frac=0.4375, second_n_sample=sizes["second_n"],
+              secondary_tile=sizes["tile"])
+    w = LossWeights(ortho=0.0, l1=4e-5, tv_density=0.0, tv_app=0.0,
+                    lr_factor=0.999971, n_iters=80000, relight_start=10000)
+    return fcfg, st, w, sizes
+
+
+def make_bench_step(fcfg, st, w, device, **overrides):
+    """bench.py's optimizer and step on ``device``, with ``overrides`` of
+    its StepStatic fields."""
+    from tensoir_tpu_torch.train.optim import make_optimizer
+    from tensoir_tpu_torch.train.step import StepStatic, make_train_step
+    opt = make_optimizer(None, 0.02, 1e-3, 0.999971)
+    return opt, make_train_step(fcfg, opt, StepStatic(**{**st, **overrides}),
+                                w, device=device)
+
+
+def bench_field(fcfg, sizes, seed, device):
+    """bench.py's scene: the blob field at its grid, masked by
+    update_alpha_mask at its mask resolution."""
+    from tensoir_tpu_torch.models.lifecycle import update_alpha_mask
+    params, scene = field(fcfg, (sizes["grid"],) * 3, seed, device)
+    scene, _ = update_alpha_mask(fcfg, params, scene, (sizes["mask"],) * 3)
+    return params, scene
+
+
+def _window_agreement(fcfg, baked, coarse, sizes_list, seed: int):
+    """The window march on the card and on the CPU from the same bf16 bake,
+    coarse grid and pairs (points in the blob's shell, random directions),
+    for each (n_sample, window, window_back) of ``sizes_list``. Returns
+    (results, failures): the indices jj and the mask m must be equal, the
+    density within 1e-5 relative and 1e-6 absolute (the same K1 rows and
+    corner weights, summed over the 8 corners in another order)."""
+    import torch
+    from tensoir_tpu_torch.render import secondary
+    rng = np.random.default_rng(seed)
+    n = 65536
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    host = [torch.as_tensor(AABB),
+            torch.as_tensor((u * rng.uniform(0.2, 0.9, (n, 1)))
+                            .astype(np.float32)),
+            torch.as_tensor(d.astype(np.float32))]
+    out, fails = {}, []
+    for n_sample, window, back in sizes_list:
+        kw = dict(n_sample=n_sample, vis_near=0.05, vis_far=1.5,
+                  window=window, prepass_n=8, window_back=back)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            aabb, o, dirs = (x.to(dev) for x in host)
+            jj, m = secondary.window_indices(coarse.to(dev), baked.shape,
+                                             aabb, o, dirs, **kw)
+            _, sigma, _ = secondary._march_window(
+                fcfg, baked.to(dev), coarse.to(dev), aabb, o, dirs, **kw)
+            got[dev] = (jj.cpu(), m.cpu(), sigma.cpu())
+        (jg, mg, sg), (jc, mc, sc) = got["cuda"], got["cpu"]
+        key = f"S{n_sample}_w{window}_b{back}"
+        err = float((sg - sc).abs().max())
+        out[key] = {"jj_differ": int((jg != jc).sum()),
+                    "m_differ": int((mg != mc).sum()),
+                    "marched_share": float(mc.float().mean()),
+                    "sigma_max_abs_err": err}
+        if out[key]["jj_differ"] or out[key]["m_differ"]:
+            fails.append(f"window {key}: indices differ {out[key]}")
+        if not torch.allclose(sg, sc, rtol=1e-5, atol=1e-6):
+            fails.append(f"window {key}: sigma max abs err {err}")
+    return out, fails
+
+
+def phase_bench_step_parity():
+    """One deterministic step of bench.py's configuration at its CPU sizes,
+    with the sigma bake cut to 32 nodes per axis (below the grid of 48, so
+    the factor resize runs), card (kernels) against CPU (plain versions),
+    from the same masked field made on the CPU: the variants and
+    tolerances of phase_relight_step_parity. The pair-choice replay covers
+    every ``primary.compact_nonzero`` call of the step: the hemisphere
+    compaction's, then each tile's pair cap. Also held:
+    - the sigma bake and the appearance bake, each within 1 bf16 ulp;
+    - the coarse occupancy each device makes from its own bake: equal;
+    - the window march from the same tables and pairs, on the parity's
+      window (16 samples, 12/4) and bench.py's (96, 48/16): jj and m
+      equal, the density as _window_agreement says."""
+    import torch
+    from tensoir_tpu_torch.models import field as F
+    loss_tol, grad_tol = 1e-4, 1e-3
+    fcfg, st, w, sizes = bench_setup(full=False)
+    st = dict(st, secondary_bake_reso=32, deterministic=True)
+    params0, scene0 = bench_field(fcfg, sizes, seed=3, device="cpu")
+    n_rays = ray_cap = sizes["B"]
+
+    def bakes(p, s):
+        return [F.bake_packed_sigma_grid(fcfg, p, s, max_reso=32),
+                F.bake_app_feature_grid(fcfg, p, max_reso=sizes["app_bake"])]
+
+    def run(dev, knobs, **kw):
+        return _step_on(dev, params0, scene0,
+                        lambda d: make_bench_step(fcfg, st, w, d, **knobs),
+                        n_rays, 0, bakes, **kw)
+
+    res, fails, runs = _capped_parity(run, {}, dict(app_pair_frac=1.0),
+                                      ray_cap, n_rays, w.rgb_brdf, loss_tol,
+                                      grad_tol)
+    (s_gpu, a_gpu), (s_cpu, a_cpu) = runs["lifted"][0][4], runs["lifted"][1][4]
+    bake_over, bake_ulp, bake_edge = _bake_agreement(fcfg, s_gpu, s_cpu)
+    if bake_over:
+        fails.append(f"sigma bake: {bake_over} entries over 1 bf16 ulp")
+    app_over, app_ulp, _ = _bake_agreement(fcfg, a_gpu, a_cpu)
+    if app_over:
+        fails.append(f"app bake: {app_over} entries over 1 bf16 ulp")
+    c_gpu = F.bake_coarse_occupancy(s_gpu.cuda(), dilate=st["coarse_dilate"])
+    c_cpu = F.bake_coarse_occupancy(s_cpu, dilate=st["coarse_dilate"])
+    coarse_differ = int((c_gpu.cpu() != c_cpu).sum())
+    if coarse_differ:
+        fails.append(f"coarse occupancy: {coarse_differ} cells differ")
+    window, wfails = _window_agreement(
+        fcfg, s_cpu, c_cpu, [(sizes["second_n"], sizes["window"],
+                              sizes["window_back"]), (96, 48, 16)], seed=4)
+    fails += wfails
+    emit({"phase": "bench_step_parity", "ok": not fails, "fails": fails,
+          "variants": res, "sigma_bake_shape": list(s_cpu.shape),
+          "sigma_bake_over_1ulp": bake_over, "sigma_bake_1ulp_apart": bake_ulp,
+          "sigma_bake_mask_edge": bake_edge,
+          "app_bake_shape": list(a_cpu.shape), "app_bake_over_1ulp": app_over,
+          "app_bake_1ulp_apart": app_ulp,
+          "coarse_cells": c_cpu.numel(), "coarse_occupied": int(c_cpu.sum()),
+          "coarse_differ": coarse_differ, "window": window,
+          "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol,
+                  "bake_ulp": 1, "window": "equal"}})
+    check(not fails, "bench_step_parity: " + "; ".join(fails))
+
+
+def phase_bench_train(streams):
+    """bench.py's step at full width; records its index streams (second
+    warm-up step) into ``streams``; returns (launch counts, launches by
+    shape) of its 10 timed steps. Then one profiled step
+    (bench_breakdown), and one step with the secondary statistics on,
+    outside the timed loop, as bench.py:281-295 takes them."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models.field import check_march_contract
+    from tensoir_tpu_torch.render import secondary
+    fcfg, st, w, sizes = bench_setup(full=True)
+    contract = check_march_contract(AABB, prepass_n=st["second_prepass_n"],
+                                    dilate=st["coarse_dilate"])
+    t0 = time.perf_counter()
+    params, scene = bench_field(fcfg, sizes, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    opt, step_fn = make_bench_step(fcfg, st, w, "cuda")
+    state = opt.init(params)
+    B = sizes["B"]
+    batch = batch_of(B, "cuda")
+    key = torch.Generator(device="cuda").manual_seed(1)
+    params, state, m = step_fn(params, state, scene, batch, key, 0)
+    with kernel_calls("bench_train", {}, streams):
+        params, state, m = step_fn(params, state, scene, batch, key, 1)
+    it = 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mets, shapes = [], {}
+    reset_launch_counts()
+    secondary.reset_march_counts()
+    t0 = time.perf_counter()
+    with kernel_calls("bench_train", shapes):
+        for _ in range(10):
+            params, state, m = step_fn(params, state, scene, batch, key, it)
+            mets.append(m)
+            it += 1
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    launches = dict(LAUNCHES)
+    marched = dict(secondary.MARCHED)
+    losses = [float(x["total_loss"]) for x in mets]
+    n_acc = float(mets[-1]["n_acc_masked"])
+    dirs = sizes["env"][0] * sizes["env"][1]
+    # bench.py's count: the primary rays and the real visibility rays
+    rays_per_step = B + min(int(n_acc), sizes["relight_cap"]) * dirs
+    total = sizes["relight_cap"] * dirs
+    cap = -(-int(total * st["secondary_compact_frac"]) // st["secondary_tile"]
+            ) * st["secondary_tile"]
+    res = {"phase": "bench_train", "grid": [sizes["grid"]] * 3,
+           "n_samples": sizes["n_samples"], "batch": B,
+           "march_cap": st["march_cap"],
+           "relight_ray_cap": sizes["relight_cap"], "light_dirs": dirs,
+           "second_n_sample": sizes["second_n"],
+           "secondary_tile": st["secondary_tile"],
+           "window": [st["second_window"], st["second_window_back"]],
+           "bake_reso": st["secondary_bake_reso"],
+           "app_bake_reso": st["app_bake_reso"],
+           "march_contract_ratio": contract,
+           "step_ms": step_ms, "rays_per_step": rays_per_step,
+           "rays_per_s": rays_per_step / step_ms * 1e3,
+           "alpha_mask_s": mask_s,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses,
+           "loss_rgb_brdf": [float(x["loss_rgb_brdf"]) for x in mets],
+           "n_acc_masked": n_acc,
+           "march_overflow_frac": float(mets[-1].get("march_overflow_frac",
+                                                     0.0)),
+           "secondary_pairs_marched": marched["pairs"],
+           "secondary_tiles_marched": marched["tiles"],
+           "secondary_rows_per_step": cap,
+           "launches": launches, "launches_by_shape": by_shape(shapes, 10),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "psnr_last": float(mets[-1]["psnr"])}
+    # the K1-bf16 shapes of the step: the app bake (L x 63^3 rows of 8 x 27
+    # bf16) at pair cap x second_app_cap points per tile, and the 127^3
+    # sigma bake at tile x window samples per tile
+    app_cells = (min(sizes["grid"], st["app_bake_reso"]) - 1) ** 3
+    sigma_cells = (min(sizes["grid"], st["secondary_bake_reso"]) - 1) ** 3
+    pair_cap = int(st["secondary_tile"] * st["app_pair_frac"])
+    bf16_at = {
+        "app_bake": shapes.get(("bench_train", "row_gather_bf16", app_cells,
+                                8 * fcfg.app_dim,
+                                pair_cap * st["second_app_cap"]), 0),
+        "sigma_bake": shapes.get(("bench_train", "row_gather_bf16",
+                                  sigma_cells, 8,
+                                  st["secondary_tile"] * st["second_window"]),
+                                 0)}
+    res["row_gather_bf16_at"] = bf16_at
+    fails = []
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fails.append(f"bench loss did not fall: {losses}")
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched on the bench path: "
+                     f"{launches}")
+    if marched != {"pairs": 10 * cap, "tiles": 10 * cap // st[
+            "secondary_tile"]}:
+        fails.append(f"secondary marched {marched} in 10 steps, not "
+                     f"10 x {cap} rows")
+    if not all(bf16_at.values()):
+        fails.append(f"row_gather_bf16 not launched at each bake: {bf16_at}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "bench_train: " + "; ".join(fails))
+    emit_breakdown("bench_breakdown",
+                   lambda: step_fn(params, state, scene, batch, key, it),
+                   step_ms)
+    _, stats_fn = make_bench_step(fcfg, st, w, "cuda", secondary_stats=True)
+    _, _, ms = stats_fn(params, state, scene, batch, key, it + 1)
+    sec = {k.replace("/", "_"): float(v) for k, v in ms.items()
+           if k.startswith("sec/")}
+    emit({"phase": "bench_secondary_stats", "ok": bool(sec), **sec})
+    check(all(k in sec for k in ("sec_app_pair_overflow_frac",
+                                 "sec_compact_overflow_frac",
+                                 "sec_app_pair_occupancy")),
+          f"bench secondary stats missing: {sorted(sec)}")
+    return launches, shapes
+
+
 # each path's own shape for each kernel: the lookup that moves the most
 # bytes per launch on that path
 PATH_CASES = {
@@ -977,13 +1308,19 @@ PATH_CASES = {
                       "row_gather_bf16": ("bf16", "baked_grid"),
                       "row_scatter_add": ("relight_density",
                                           "row_scatter_add")},
+    "bench_train": {"row_gather": ("bench_density", "row_gather"),
+                    "row_gather_bf16": ("bf16", "bench_app_bake"),
+                    "row_scatter_add": ("bench_density", "row_scatter_add")},
 }
+# the path whose numbers lead each kernel's summary entry: the newest
+# slice's step
+MAIN_PATH = "bench_train"
 
 
 def kernel_summary(cases, launches, shapes) -> list:
-    """One entry per kernel: the relight path's launches beside its own
-    shape and times, and each path's under ``by_path`` with the launches at
-    that shape (``launches_at_shape``)."""
+    """One entry per kernel: the main path's launches beside its own shape
+    and times, and each path's under ``by_path`` with the launches at that
+    shape (``launches_at_shape``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []
@@ -999,7 +1336,7 @@ def kernel_summary(cases, launches, shapes) -> list:
                              "launches_at_shape": shapes.get(at, 0),
                              "shape": {k: shape[k] for k in ("R", "C", "N")},
                              **{k: c[k] for k in keys}}
-        main_path = by_path["relight_train"]
+        main_path = by_path[MAIN_PATH]
         summary.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, **main_path,
                         "by_path": by_path})
@@ -1030,8 +1367,10 @@ def main() -> int:
         phase_build()
         phase_step_parity()
         phase_relight_step_parity()
+        phase_bench_step_parity()
         for path, run in (("train", phase_train),
-                          ("relight_train", phase_relight_train)):
+                          ("relight_train", phase_relight_train),
+                          ("bench_train", phase_bench_train)):
             launches[path], counts = run(streams)
             shapes.update(counts)
         cases = phase_kernels(streams)

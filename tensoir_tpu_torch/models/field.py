@@ -1,14 +1,16 @@
 """The TensoIR radiance field, VM decomposition (port of
 tensoir_tpu.models.field: config, init, the queries of the training step,
-derived normals, the alpha mask and the baked sigma grid).
+derived normals, the alpha mask, the baked sigma grid (optionally on
+factors resized to a coarser grid) with its coarse occupancy, and the baked
+per-light appearance grid).
 
 Parameters and scene are flat dicts of tensors keyed exactly like the JAX
 pytrees (``density_plane_{i}`` [H, W, R], ``density_line_{i}`` [D, R],
 ``app_*``, ``light_line``, ``basis_mat``, MLP dicts, ``lgt_sgs``), so a
 JAX-initialized field carries over with ``weights.params_from_numpy``.
 Every VM plane lookup goes through the corner-packed row gather K1 on f32
-rows; the corner-packed trilinear lookups (alpha mask, baked sigma grid)
-go through K1 on bf16 rows.
+rows; the corner-packed trilinear lookups (alpha mask, baked sigma grid,
+baked appearance grid) go through K1 on bf16 rows.
 """
 from __future__ import annotations
 
@@ -23,7 +25,10 @@ from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.kernels import row_gather
 from tensoir_tpu_torch.models import lighting, mlps
 from tensoir_tpu_torch.ops.interp import (bilerp_plane_packed,
-                                          lerp_line_matmul, trilerp_volume)
+                                          lerp_line_matmul,
+                                          resize_bilinear_align_corners,
+                                          resize_line_align_corners,
+                                          trilerp_volume)
 from tensoir_tpu_torch.ops.rays import linspace, safe_l2_normalize
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
@@ -300,13 +305,29 @@ def _mask_at_grid_nodes(scene: Dict, grid_xyz: Tuple[int, int, int]):
                        torch.ones_like(out))
 
 
+def _resized_factors(plane: torch.Tensor, line: torch.Tensor, max_reso: int):
+    """A plane [H, W, R] and a line [D, R] resized to at most ``max_reso``
+    nodes per axis (``align_corners``: the resized factors are the field's
+    exact VM factors at the coarser nodes)."""
+    H, W, _ = plane.shape
+    nh, nw = min(H, max_reso), min(W, max_reso)
+    if (nh, nw) != (H, W):
+        plane = resize_bilinear_align_corners(plane, (nh, nw))
+    if line.shape[0] > max_reso:
+        line = resize_line_align_corners(line, max_reso)
+    return plane, line
+
+
 def _bake_masked_dense(cfg: FieldConfig, params: Dict, scene: Dict,
                        max_reso: int = 0) -> torch.Tensor:
     """Dense sigma-feature grid [Z, Y, X] with the alpha mask folded in
-    (masked nodes -> -1e4, whose softplus is 0)."""
+    (masked nodes -> -1e4, whose softplus is 0), on the factors resized to
+    at most ``max_reso`` nodes per axis when it is > 0."""
     if max_reso > 0:
-        raise NotImplementedError(
-            "secondary_bake_reso > 0 (factor-resized bake): not ported yet")
+        params = dict(params)
+        for i in range(3):
+            params[f"density_plane_{i}"], params[f"density_line_{i}"] = \
+                _resized_factors(*density_factors(cfg, params, i), max_reso)
     baked = bake_sigma_feature_grid(cfg, params)
     Z, Y, X = baked.shape
     mask = _mask_at_grid_nodes(scene, (X, Y, Z))
@@ -323,6 +344,150 @@ def bake_packed_sigma_grid(cfg: FieldConfig, params: Dict, scene: Dict,
     gradients."""
     return pack_corner_volume(_bake_masked_dense(cfg, params, scene, max_reso),
                               dtype)
+
+
+@torch.no_grad()
+def bake_coarse_occupancy(packed: torch.Tensor, reso: int = 48,
+                          feat_thres: float = 0.0,
+                          dilate: int = 2) -> torch.Tensor:
+    """Conservative coarse occupancy, bool [reso, reso, reso], of a
+    corner-packed baked grid: a coarse cell is marked when any fine cell in
+    its block (the fine grid zero-padded to ``reso`` blocks per axis) has a
+    corner feature above ``feat_thres``, then dilated by ``dilate`` coarse
+    cells. Half the window march's prepass spacing must stay within the
+    dilation margin (``check_march_contract``)."""
+    occ = packed.float().amax(-1) > feat_thres
+    Zc, Yc, Xc = occ.shape
+    bz, by, bx = -(-Zc // reso), -(-Yc // reso), -(-Xc // reso)
+    occ = Fn.pad(occ, (0, bx * reso - Xc, 0, by * reso - Yc,
+                       0, bz * reso - Zc))
+    coarse = occ.reshape(reso, bz, reso, by, reso, bx).any(5).any(3).any(1)
+    if dilate > 0:
+        # max over the (2 dilate + 1)^3 neighbourhood; the pooling pads with
+        # -inf, as the reference's "SAME" max window does
+        coarse = Fn.max_pool3d(coarse.float()[None, None], 2 * dilate + 1,
+                               stride=1, padding=dilate)[0, 0] > 0.0
+    return coarse
+
+
+def check_march_contract(aabb_np, *, prepass_n: int, dilate: int = 2,
+                         coarse_reso: int = 48, vis_near: float = 0.05,
+                         vis_far: float = 1.5) -> float:
+    """The window march's conservativeness contract, on the host: half the
+    prepass spacing must not exceed the dilation margin (``dilate`` coarse
+    cells of the smallest AABB extent), or the prepass can step over an
+    occupied cell. Raises ValueError when it is broken; returns the margin
+    over the half spacing (>= 1 is safe)."""
+    aabb_np = np.asarray(aabb_np, np.float64).reshape(2, 3)
+    extent = float(np.min(aabb_np[1] - aabb_np[0]))
+    margin = dilate * extent / coarse_reso
+    half_spacing = 0.5 * (vis_far - vis_near) / max(prepass_n - 1, 1)
+    if half_spacing > margin:
+        raise ValueError(
+            f"interval-culled march contract violated: half prepass "
+            f"spacing {half_spacing:.4f} > dilation margin {margin:.4f} "
+            f"(prepass_n={prepass_n}, dilate={dilate}, "
+            f"coarse_reso={coarse_reso}, min aabb extent {extent:.3f}) — "
+            f"raise prepass_n or dilate, or lower coarse_reso")
+    return margin / half_spacing
+
+
+def coarse_occupancy_lookup(coarse: torch.Tensor, packed_shape, coords):
+    """Nearest-cell coarse occupancy at normalized coords [..., 3]; bool.
+    ``packed_shape`` is the fine corner-packed grid's, whose cells the
+    coarse grid blocks together."""
+    Rc = coarse.shape[0]
+    Zc, Yc, Xc = packed_shape[0], packed_shape[1], packed_shape[2]
+    bz, by, bx = -(-Zc // Rc), -(-Yc // Rc), -(-Xc // Rc)
+    i64 = torch.int64
+    cx = torch.floor((coords[..., 0] + 1.0) * 0.5 * Xc).clamp(0, Xc - 1)
+    cy = torch.floor((coords[..., 1] + 1.0) * 0.5 * Yc).clamp(0, Yc - 1)
+    cz = torch.floor((coords[..., 2] + 1.0) * 0.5 * Zc).clamp(0, Zc - 1)
+    idx = ((cz.to(i64) // bz * Rc + cy.to(i64) // by) * Rc
+           + cx.to(i64) // bx)
+    return coarse.reshape(-1)[idx]
+
+
+@torch.no_grad()
+def bake_app_feature_grid(cfg: FieldConfig, params: Dict,
+                          dtype=torch.bfloat16,
+                          max_reso: int = 0) -> torch.Tensor:
+    """Corner-packed per-light radiance-feature grids [L, Zc*Yc*Xc, 8*A]
+    (corner order 4*dz + 2*dy + dx, then the A features), on the factors
+    resized to at most ``max_reso`` nodes per axis when it is > 0.
+
+    The radiance feature basis^T (raw_app(x) * light_line[l]) of the VM
+    factors at their own nodes is, per axis i, sum_r plane_i * line_i *
+    (light_line[l] * basis)_i[r, a]: the product of the plane and line is
+    made per node as [Z*Y*X, R] (at 64^3 nodes and R 48 a 50 MB f32
+    temporary) and contracted with the [R, A] light-basis product."""
+    _require_vm(cfg)
+    lc = params["light_line"]                           # [L, sum R]
+    basis = params["basis_mat"]                         # [sum R, A]
+    spatial = ("yxr,zr->zyxr", "zxr,yr->zyxr", "zyr,xr->zyxr")
+    grid, r0 = None, 0
+    for i in range(3):
+        plane, line = app_factors(cfg, params, i)
+        if max_reso > 0:
+            plane, line = _resized_factors(plane, line, max_reso)
+        R = plane.shape[-1]
+        nodes = torch.einsum(spatial[i], plane, line)           # [Z, Y, X, R]
+        lb = lc[:, r0:r0 + R, None] * basis[None, r0:r0 + R]    # [L, R, A]
+        term = torch.matmul(nodes.reshape(-1, R), lb)           # [L, ZYX, A]
+        term = term.reshape(lc.shape[0], *nodes.shape[:3], -1)
+        grid = term if grid is None else grid + term
+        r0 += R
+    L, Z, Y, X, A = grid.shape
+    packed = torch.stack([grid[:, dz:Z - 1 + dz, dy:Y - 1 + dy,
+                               dx:X - 1 + dx].to(dtype)
+                          for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)],
+                         -2)                          # [L, Zc, Yc, Xc, 8, A]
+    return packed.reshape(L, (Z - 1) * (Y - 1) * (X - 1), 8 * A)
+
+
+def app_bake_cells(cfg: FieldConfig, params: Dict, max_reso: int):
+    """(Zc, Yc, Xc): the cell counts of ``bake_app_feature_grid`` at
+    ``max_reso`` > 0, from the factor shapes (axis 0's plane is [Y, X], its
+    line Z)."""
+    plane, line = app_factors(cfg, params, 0)
+    return (min(line.shape[0], max_reso) - 1,
+            min(plane.shape[0], max_reso) - 1,
+            min(plane.shape[1], max_reso) - 1)
+
+
+def app_feature_baked(app_baked: torch.Tensor, grid_cells, coords,
+                      light_idx) -> torch.Tensor:
+    """Trilinear radiance feature [..., A] from the per-light app bake
+    [L, Zc*Yc*Xc, 8*A] at normalized coords [..., 3] and light indices
+    [...]: one K1 row of 8 corners x A bf16 features per point."""
+    Zc, Yc, Xc = grid_cells
+    L, cells, A8 = app_baked.shape
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
+    fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
+    fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
+    ix = torch.floor(fx).clamp(0, Xc - 1)
+    iy = torch.floor(fy).clamp(0, Yc - 1)
+    iz = torch.floor(fz).clamp(0, Zc - 1)
+    wx, wy, wz = fx - ix, fy - iy, fz - iz
+    i32 = torch.int32
+    idx = (light_idx.to(i32) * cells
+           + (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32))
+    rows = row_gather(app_baked.reshape(L * cells, A8), idx.reshape(-1))
+    rows = rows.float().reshape(*idx.shape, 8, A8 // 8)
+    return (rows * _corner_weights(wx, wy, wz)[..., None]).sum(-2)
+
+
+def _corner_weights(wx, wy, wz) -> torch.Tensor:
+    """The 8 trilinear corner weights [..., 8] in corner order
+    4*dz + 2*dy + dx."""
+    w0x, w1x = 1.0 - wx, wx
+    w0y, w1y = 1.0 - wy, wy
+    w0z, w1z = 1.0 - wz, wz
+    return torch.stack([
+        w0z * w0y * w0x, w0z * w0y * w1x, w0z * w1y * w0x, w0z * w1y * w1x,
+        w1z * w0y * w0x, w1z * w0y * w1x, w1z * w1y * w0x, w1z * w1y * w1x,
+    ], -1)
 
 
 # ---------------------------------------------------------------- alpha mask
@@ -355,14 +520,7 @@ def density_feature_packed(packed: torch.Tensor, coords) -> torch.Tensor:
     idx = (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32)
     rows = row_gather(packed.reshape(Zc * Yc * Xc, 8),
                       idx.reshape(-1)).float().reshape(*idx.shape, 8)
-    w0x, w1x = 1.0 - wx, wx
-    w0y, w1y = 1.0 - wy, wy
-    w0z, w1z = 1.0 - wz, wz
-    weights = torch.stack([
-        w0z * w0y * w0x, w0z * w0y * w1x, w0z * w1y * w0x, w0z * w1y * w1x,
-        w1z * w0y * w0x, w1z * w0y * w1x, w1z * w1y * w0x, w1z * w1y * w1x,
-    ], -1)
-    return (rows * weights).sum(-1)
+    return (rows * _corner_weights(wx, wy, wz)).sum(-1)
 
 
 def sample_alpha_mask(scene: Dict, xyz):

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from tensoir_tpu_torch.kernels import gather_rows
+from tensoir_tpu_torch.ops.rays import linspace
 
 
 def clip(x: torch.Tensor, lo: Optional[float],
@@ -48,6 +49,52 @@ def lerp_line(line: torch.Tensor, z: torch.Tensor,
     v0 = line[iz0.long()]
     v1 = line[iz1.long()]
     return v0 * w0[..., None] + v1 * w1[..., None]
+
+
+def bilerp_plane(plane: torch.Tensor, x: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup on a [H, W, C] plane at x (along W) and y (along H),
+    ``align_corners=True`` with border clamping: four plain row lookups,
+    each weighted and summed in the reference's order. Returns [..., C]."""
+    H, W, C = plane.shape
+    ix = _unnormalize(x, W, True)
+    iy = _unnormalize(y, H, True)
+    ix0, iy0 = torch.floor(ix), torch.floor(iy)
+    wx1, wy1 = ix - ix0, iy - iy0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    flat = plane.reshape(H * W, C)
+
+    def corner(iyf, ixf, w):
+        row = iyf.clamp(0, H - 1).long() * W + ixf.clamp(0, W - 1).long()
+        return flat[row] * w[..., None]
+
+    return (corner(iy0, ix0, wy0 * wx0) + corner(iy0, ix0 + 1, wy0 * wx1)
+            + corner(iy0 + 1, ix0, wy1 * wx0)
+            + corner(iy0 + 1, ix0 + 1, wy1 * wx1))
+
+
+def _resize_positions(n: int, device) -> torch.Tensor:
+    """The n node positions of an ``align_corners`` resize in [-1, 1], as
+    ``jnp.linspace`` places them (a single node sits at 0)."""
+    if n > 1:
+        return linspace(-1.0, 1.0, n, device=device)
+    return torch.zeros((1,), device=device)
+
+
+def resize_bilinear_align_corners(grid: torch.Tensor, out_hw) -> torch.Tensor:
+    """[H, W, C] -> [H_new, W_new, C] bilinear resize with
+    ``align_corners=True``: the plane looked up at the new grid's nodes,
+    with the reference's arithmetic (not ``F.interpolate``, which rounds
+    the weights otherwise)."""
+    ys = _resize_positions(int(out_hw[0]), grid.device)
+    xs = _resize_positions(int(out_hw[1]), grid.device)
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    return bilerp_plane(grid, xx, yy)
+
+
+def resize_line_align_corners(line: torch.Tensor, out_d: int) -> torch.Tensor:
+    """[D, C] -> [D_new, C] linear resize, ``align_corners=True``."""
+    return lerp_line(line, _resize_positions(int(out_d), line.device))
 
 
 def lerp_line_matmul(line: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

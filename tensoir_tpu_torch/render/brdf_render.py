@@ -63,6 +63,9 @@ def render_with_brdf(
     secondary_use_baked: bool = True,
     secondary_bake_reso: int = 0,
     second_window: int = 0,
+    second_window_back: int = 0,
+    second_prepass_n: int = 18,
+    coarse_dilate: int = 2,
     secondary_compact_frac: float = 0.0,
     second_march_group: int = 0,
     app_bake_reso: int = 0,
@@ -71,8 +74,11 @@ def render_with_brdf(
     app_pair_frac: float = 0.0,
     return_secondary_stats: bool = False,
     second_window_probe: int = 0,
-) -> torch.Tensor:
-    """Physically based RGB per ray, [P, 3]."""
+    second_window_probe_back: int = 0,
+):
+    """Physically based RGB per ray, [P, 3]; with
+    ``return_secondary_stats`` also the secondary pass's statistics,
+    (rgb, stats)."""
     rays_o, rays_d = rays[:, :3], rays[:, 3:6]
     dev = rays.device
     surface_xyz = rays_o + depth_map[:, None] * rays_d           # [P, 3]
@@ -86,16 +92,24 @@ def render_with_brdf(
 
     # the hemisphere above each normal
     cosine = clip(torch.einsum("plk,pk->pl", surf2l, normal_map), 0.0, None)
-    visibility, indirect = secondary_shading_tiled(
+    if sample_method == "importance_sample":
+        # importance directions crowd around the light's lobe, so far more
+        # than the compaction's capacity of pairs can face a surface
+        secondary_compact_frac = 0.0
+    sec = secondary_shading_tiled(
         cfg, params, scene, surface_xyz.detach(), surf2l, light_idx,
         cosine > 1e-6, n_sample=second_n_sample, vis_near=second_near,
         vis_far=second_far, tile=secondary_tile, march_cap=second_march_cap,
         app_cap=second_app_cap, use_baked=secondary_use_baked,
         bake_reso=secondary_bake_reso, window=second_window,
-        compact_frac=secondary_compact_frac, march_group=second_march_group,
-        app_bake_reso=app_bake_reso, app_hoist=secondary_app_hoist,
-        app_pair_frac=app_pair_frac, return_stats=return_secondary_stats,
-        window_probe=second_window_probe)
+        window_back=second_window_back, prepass_n=second_prepass_n,
+        coarse_dilate=coarse_dilate, compact_frac=secondary_compact_frac,
+        march_group=second_march_group, app_bake_reso=app_bake_reso,
+        app_hoist=secondary_app_hoist, app_pair_frac=app_pair_frac,
+        return_stats=return_secondary_stats,
+        window_probe=second_window_probe,
+        window_probe_back=second_window_probe_back)
+    visibility, indirect = sec[0], sec[1]
 
     specular = ggx_specular(normal_map, surf2c, surf2l, roughness_map,
                             fresnel_map)                         # [P, L, 3]
@@ -109,4 +123,5 @@ def render_with_brdf(
 
     rgb = (surface_brdf * light_rgbs * cosine[..., None]
            * area_weight[None, :, None]).sum(1)
-    return linear2srgb(clip(rgb, 0.0, 1.0))
+    rgb = linear2srgb(clip(rgb, 0.0, 1.0))
+    return (rgb, sec[2]) if return_secondary_stats else rgb

@@ -40,6 +40,9 @@ def render_train_batch(
     secondary_use_baked: bool = True,
     secondary_bake_reso: int = 0,
     second_window: int = 0,
+    second_window_back: int = 0,
+    second_prepass_n: int = 18,
+    coarse_dilate: int = 2,
     secondary_compact_frac: float = 0.0,
     second_march_group: int = 0,
     app_bake_reso: int = 0,
@@ -48,6 +51,7 @@ def render_train_batch(
     app_pair_frac: float = 0.0,
     secondary_stats: bool = False,
     second_window_probe: int = 0,
+    second_window_probe_back: int = 0,
     ndc_ray: bool = False,
     relight_ray_cap: int = 1024,
     second_n_sample: int = 96,
@@ -89,13 +93,19 @@ def render_train_batch(
             secondary_use_baked=secondary_use_baked,
             secondary_bake_reso=secondary_bake_reso,
             second_window=second_window,
+            second_window_back=second_window_back,
+            second_prepass_n=second_prepass_n, coarse_dilate=coarse_dilate,
             secondary_compact_frac=secondary_compact_frac,
             second_march_group=second_march_group,
             app_bake_reso=app_bake_reso,
             secondary_app_hoist=secondary_app_hoist,
             second_app_cap=second_app_cap, app_pair_frac=app_pair_frac,
             return_secondary_stats=secondary_stats,
-            second_window_probe=second_window_probe)
+            second_window_probe=second_window_probe,
+            second_window_probe_back=second_window_probe_back)
+    if secondary_stats:
+        rgb_sel, sec_stats = rgb_sel
+        ret.update({f"sec/{k}": v for k, v in sec_stats.items()})
     rgb_sel = torch.where(sel_valid[:, None], rgb_sel,
                           torch.ones_like(rgb_sel))
 

@@ -2,9 +2,9 @@
 tensoir_tpu.train.step, for the radiance and the relight phase).
 
 ``LossWeights`` and ``StepStatic`` keep the JAX package's fields, so one
-config drives both; the knobs of paths the port does not have yet raise in
-the renderer. The step runs eagerly on ``device``: forward, backward, then
-the in-place Adam update.
+config drives both (``bench.py``'s fast-knob step included); the knobs of
+paths the port does not have yet raise in the renderer. The step runs
+eagerly on ``device``: forward, backward, then the in-place Adam update.
 """
 from __future__ import annotations
 
@@ -19,6 +19,12 @@ from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.render.train_render import render_train_batch
 from tensoir_tpu_torch.train import losses as L
 from tensoir_tpu_torch.train.optim import GroupAdam, flatten
+
+
+SEC_METRICS = ("sec/window_resid_rel", "sec/app_pair_overflow_frac",
+               "sec/app_pair_occupancy", "sec/app_slot_occupancy",
+               "sec/compact_overflow_frac", "sec/app_slot_demand_max",
+               "sec/app_slot_overflow_pairs")
 
 
 @dataclass(frozen=True)
@@ -79,15 +85,10 @@ class StepStatic:
     deterministic: bool = False
 
     def __post_init__(self):
-        # these shape only the window march, the grouped march and the
-        # window probe, none of which is ported yet
-        unported = {"second_window_back": 0, "second_prepass_n": 18,
-                    "coarse_dilate": 2, "group_bake_reso": 0,
-                    "second_window_probe_back": 0}
-        for name, default in unported.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: not ported yet")
+        # shapes only the grouped march's bake, which is not ported yet
+        if self.group_bake_reso != 0:
+            raise NotImplementedError(
+                f"group_bake_reso={self.group_bake_reso!r}: not ported yet")
 
 
 def compute_loss(cfg: F.FieldConfig, params, scene, batch,
@@ -105,6 +106,8 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         secondary_use_baked=st.secondary_use_baked,
         secondary_bake_reso=st.secondary_bake_reso,
         second_window=st.second_window,
+        second_window_back=st.second_window_back,
+        second_prepass_n=st.second_prepass_n, coarse_dilate=st.coarse_dilate,
         secondary_compact_frac=st.secondary_compact_frac,
         second_march_group=st.second_march_group,
         app_bake_reso=st.app_bake_reso,
@@ -113,6 +116,7 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         app_pair_frac=st.app_pair_frac,
         secondary_stats=st.secondary_stats,
         second_window_probe=st.second_window_probe,
+        second_window_probe_back=st.second_window_probe_back,
         ndc_ray=st.ndc_ray, relight_ray_cap=st.relight_ray_cap,
         second_n_sample=st.second_n_sample, second_near=st.second_near,
         second_far=st.second_far, secondary_tile=st.secondary_tile)
@@ -147,6 +151,8 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         # rays with more occupied samples than march_cap: the culled march
         # is exact only on the others
         metrics["march_overflow_frac"] = ret["march_overflow_frac"]
+    # the secondary pass's statistics (with st.secondary_stats)
+    metrics.update({k: v for k, v in ret.items() if k in SEC_METRICS})
     if "acc_mask" in ret:
         # the rays the reference would relight
         metrics["n_acc_masked"] = ret["acc_mask"].float().sum()

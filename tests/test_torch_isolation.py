@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX or of tensoir_tpu, and
-runs a radiance and a relight training step on the CPU in a process where
-neither can be imported."""
+runs a radiance, a relight and a fast-knob relight training step on the CPU
+in a process where neither can be imported."""
 import re
 import subprocess
 import sys
@@ -52,6 +52,20 @@ STEP = textwrap.dedent("""
     assert math.isfinite(float(m["total_loss"]))
     assert math.isfinite(float(m["loss_rgb_brdf"]))
     assert float(m["n_acc_masked"]) > 0
+    # bench.py's fast knobs: resized bake, window march over the coarse
+    # occupancy, hemisphere compaction, baked appearance, the sec/* stats
+    step = make_train_step(cfg, opt, StepStatic(
+        n_samples=32, is_relight=True, white_bg=True, app_cap=8,
+        march_cap=16, relight_ray_cap=8, second_n_sample=16,
+        secondary_tile=128, secondary_bake_reso=12, second_window=12,
+        second_window_back=4, second_prepass_n=8, coarse_dilate=3,
+        secondary_compact_frac=0.5625, app_bake_reso=12, second_app_cap=6,
+        app_pair_frac=0.4375, secondary_stats=True),
+        LossWeights(l1=4e-5), device="cpu")
+    params, state, m = step(params, state, scene, batch,
+                            torch.Generator().manual_seed(3), 10001)
+    assert math.isfinite(float(m["total_loss"]))
+    assert 0.0 <= float(m["sec/app_pair_occupancy"])
     assert not any(k == "jax" or k.startswith(("jax.", "tensoir_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")

@@ -106,8 +106,6 @@ def test_baked_grid_matches_jax_within_one_bf16_ulp(masked):
     assert edge.sum() < want.size // 100
     assert (jit[edge] == -9984.0).all()
     assert (np.log1p(np.exp(got[edge] + jcfg.density_shift)) < 2e-4).all()
-    with pytest.raises(NotImplementedError):
-        TF.bake_packed_sigma_grid(tcfg, tp, ts, max_reso=8)
 
 
 _j_rad = jax.jit(_j_radiance, static_argnums=0,
@@ -186,10 +184,9 @@ def test_secondary_knobs_not_ported_raise(masked):
     args = (port_cfg(jcfg), tp, ts, torch.zeros((2, 3)),
             torch.ones((2, 4, 3)), torch.zeros((2,), dtype=torch.int32),
             torch.ones((2, 4), dtype=torch.bool))
-    for kw in (dict(window=8), dict(compact_frac=0.5), dict(march_group=2),
-               dict(app_bake_reso=64), dict(app_hoist=True),
-               dict(return_stats=True), dict(window_probe=8),
-               dict(bake_reso=8)):
+    # the grouped march and the global app stage; the other fast knobs run
+    # (tests/test_torch_fastknobs.py)
+    for kw in (dict(march_group=2), dict(app_hoist=True)):
         with pytest.raises(NotImplementedError):
             TSec.secondary_shading_tiled(*args, tile=8, **SEC, **kw)
 

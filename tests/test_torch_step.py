@@ -75,25 +75,29 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError):
             t_render_rays(port_cfg(jcfg), tp, ts, t(r),
                           t(lidx, torch.int32), **args)
-    # the relight step runs; its fast knobs of a later slice raise
+    # the relight step runs, with bench.py's fast knobs too; the grouped
+    # march and the importance sampler raise
     base = dict(n_samples=S, key=None, is_train=False, is_relight=True,
                 relight_ray_cap=4, second_n_sample=8, secondary_tile=64)
-    ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
-                               t(lidx, torch.int32), **base)
-    assert ret["rgb_with_brdf_map"].shape == (B, 3)
-    for kw in (dict(second_window=4), dict(secondary_compact_frac=0.5),
-               dict(app_bake_reso=16), dict(second_march_group=2),
-               dict(secondary_bake_reso=8),
+    fast = dict(second_window=4, second_window_back=2, second_prepass_n=8,
+                coarse_dilate=3, secondary_compact_frac=0.5625,
+                app_bake_reso=12, secondary_bake_reso=12, second_app_cap=4,
+                app_pair_frac=0.5, secondary_stats=True)
+    for kw in ({}, fast):
+        ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
+                                   t(lidx, torch.int32), **base, **kw)
+        assert ret["rgb_with_brdf_map"].shape == (B, 3)
+    assert "sec/app_pair_occupancy" in ret
+    for kw in (dict(second_march_group=2),
                dict(sample_method="importance_sample")):
         with pytest.raises(NotImplementedError):
             t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
                                  t(lidx, torch.int32), **base, **kw)
-    # the window and grouped marches' own knobs raise where they are set
-    for kw in (dict(second_window_back=4), dict(second_prepass_n=8),
-               dict(coarse_dilate=3), dict(group_bake_reso=64),
-               dict(second_window_probe_back=2)):
-        with pytest.raises(NotImplementedError):
-            TS.StepStatic(n_samples=S, is_relight=True, white_bg=True, **kw)
+    # the grouped march's own bake knob raises where it is set
+    with pytest.raises(NotImplementedError):
+        TS.StepStatic(n_samples=S, is_relight=True, white_bg=True,
+                      group_bake_reso=64)
+    TS.StepStatic(n_samples=S, is_relight=True, white_bg=True, **fast)
 
 
 def _weights(lr_factor):
