@@ -52,6 +52,23 @@ Phases, one JSON line each, in this order:
                bench.py counts them); then bench_breakdown, one profiled
                step, and bench_secondary_stats, one step with the
                secondary statistics on
+  lifecycle_parity
+               the first alpha-mask event of the armadillo schedule on a
+               full-width blob field at 128^3, on the card and on the CPU:
+               update_alpha_mask, shrink, upsample to the next voxel count,
+               filter_rays_mask of the demo's 393,216 rays; box, AABB,
+               masks, grids and keep masks equal, factors allclose
+  train_run    a whole training run: the port's reconstruction of
+               configs/single_light/armadillo.txt at full width from random
+               weights, with its voxel schedule (128^3 to 300^3 over four
+               upsamples) and its six alpha-mask updates on compressed
+               iterations (TRAIN_RUN_RADIANCE radiance steps, then events 10
+               and 20 apart), on the demo's data (24 views of 128x128 of
+               the sphere over a disc), with one periodic checkpoint; per
+               phase and grid the steps' median ms and launches, each
+               event's seconds; then ckpt_final.npz is reloaded and must
+               render the same as the run's result. Its launches are the
+               summary line's (MAIN_PATH)
   kernels      each kernel against its plain PyTorch version on the card:
                at the shapes the training steps give it on random indices
                (K1 on bf16 rows at the baked grids', the app bake's and the
@@ -61,7 +78,8 @@ Phases, one JSON line each, in this order:
                equal indices and distinct rows); and at the edge cases of
                every route (edge). Max abs error, kernel / plain / library
                ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
-               bound_sector_ms (every row read as whole 32-byte sectors)
+               bound_sector_ms (every row read as whole 32-byte sectors);
+               and at the training run's busiest shape of each kernel
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -72,6 +90,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -405,9 +424,10 @@ def slice_sizes():
     return cfg, reso, n_samples
 
 
-def phase_kernels(streams):
-    """Random-index cases at both steps' shapes and the probe's, the index
-    streams the steps recorded (``streams``) and the edge cases."""
+def phase_kernels(streams, train_run_shapes):
+    """Random-index cases at the steps' shapes, the training run's busiest
+    (from its launches by shape, ``train_run_shapes``) and the probe's, the
+    index streams the steps recorded (``streams``) and the edge cases."""
     cfg, reso, n_samples = slice_sizes()
     _, rreso, _ = relight_sizes(cfg)
     plane_rows = (reso[0] - 1) * (reso[1] - 1)
@@ -453,6 +473,7 @@ def phase_kernels(streams):
         "bench_alpha_mask": bf16_gather_case(127 ** 3, BATCH * 192, seed=14),
         "bench_app_bake": bf16_gather_case(63 ** 3, 14336 * 12, seed=15,
                                            C=8 * 27)}
+    out["train_run"] = train_run_cases(train_run_shapes)
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
     emit({"phase": "kernels", "ok": True, "cases": out})
@@ -783,19 +804,21 @@ def _pair_choice(record=None, replay=None):
     check(not replay, "pair choices left over after the replayed step")
 
 
+def _to(tree, dev):
+    """A copy on ``dev`` of a dict of tensors and dicts of tensors."""
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in tree.items()}
+
+
 def _step_on(dev, params0, scene0, make, n_rays, step, bakes, record=None,
              replay=None):
     """One deterministic step on ``dev`` from a copy of the CPU field: (loss,
     n_acc_masked, parameters, gradients, the tables ``bakes(params, scene)``
     makes before the step), all on the CPU. ``make(dev)`` builds (optimizer,
     step function); ``record`` / ``replay`` as in _pair_choice."""
-    import copy
     from tensoir_tpu_torch.train.optim import flatten
     # a copy each: the step updates its parameters in place
-    params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                  if isinstance(v, dict) else v.to(dev))
-              for k, v in copy.deepcopy(params0).items()}
-    scene = {k: v.to(dev) for k, v in scene0.items()}
+    params, scene = _to(params0, dev), _to(scene0, dev)
     tables = [b.cpu() for b in bakes(params, scene)]
     opt, step_fn = make(dev)
     state = opt.init(params)
@@ -1298,6 +1321,372 @@ def phase_bench_train(streams):
     return launches, shapes
 
 
+def _timed(fn, *args, **kw):
+    """(result, seconds) of ``fn``, with the card drained before and
+    after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def shadow_dataset():
+    """The JAX demo's data (examples/train_synthetic_demo.py defaults): the
+    sphere-over-disc scene, 24 views at 128x128, 393,216 rays."""
+    from tensoir_tpu_torch.data.synthetic import SyntheticShadowDataset
+    return SyntheticShadowDataset(split="train", n_views=24, img_wh=(128, 128))
+
+
+def phase_lifecycle_parity():
+    """The first alpha-mask event of the armadillo schedule on a full-width
+    field (VM 16/48, app_dim 27, featureC 128, 128 SGs) at 128^3 with the
+    blob of utils/bench_scene.py, on the card and on the CPU from the same
+    CPU-made field: update_alpha_mask at 128^3, shrink to its box, upsample
+    to the schedule's next voxel count on the shrunk box, and
+    filter_rays_mask (256 samples per ray, chunks of 51,200) of the demo's
+    393,216 rays. The box, the shrunk AABB, the three alpha volumes, the
+    grids and the keep masks must be equal; the upsampled factors within
+    1e-6 relative and 1e-6 absolute (the same align-corners lerps, which
+    the card may contract into multiply-adds; an ulp of the blob's 8 is
+    9.5e-7)."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.models import lifecycle as LC
+    from tensoir_tpu_torch.models.field import grid_size_of
+    from tensoir_tpu_torch.train.optim import flatten
+    cfg, reso, _ = slice_sizes()
+    fcfg = C.field_config_from(cfg, NEAR_FAR)
+    n_vox = relight_sizes(cfg)[0]
+    params0, scene0 = field(fcfg, reso, seed=5, device="cpu")
+    all_rays = shadow_dataset().all_rays
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        params, scene = _to(params0, dev), _to(scene0, dev)
+        s = {}
+        (scene, box), s["alpha_mask"] = _timed(
+            LC.update_alpha_mask, fcfg, params, scene,
+            tuple(min(r, 256) for r in reso))
+        (params, scene), s["shrink"] = _timed(LC.shrink, fcfg, params, scene,
+                                              box)
+        shrunk_grid = grid_size_of(params)
+        new_reso = LC.n_to_reso(n_vox, scene["aabb"].cpu().numpy())
+        params, s["upsample"] = _timed(LC.upsample, params, new_reso)
+        keep, s["filter_rays_mask"] = _timed(LC.filter_rays_mask, fcfg,
+                                             scene, all_rays)
+        got[dev] = {"box": box, "shrunk_grid": shrunk_grid,
+                    "grid": grid_size_of(params),
+                    "scene": {k: v.cpu() for k, v in scene.items()},
+                    "factors": {k: v.cpu() for k, v in
+                                flatten(params).items()
+                                if k.startswith(("density_", "app_"))},
+                    "keep": keep}
+        secs[dev] = s
+    g, c = got["cuda"], got["cpu"]
+    fails = []
+    if not np.array_equal(g["box"], c["box"]):
+        fails.append(f"box {g['box'].tolist()} vs {c['box'].tolist()}")
+    for k in ("aabb", "alpha_volume", "alpha_volume_dilated",
+              "alpha_volume_packed"):
+        if not torch.equal(g["scene"][k], c["scene"][k]):
+            fails.append(f"scene {k} differs")
+    if (g["shrunk_grid"], g["grid"]) != (c["shrunk_grid"], c["grid"]):
+        fails.append(f"grids {g['grid']} vs {c['grid']}")
+    err = max(float((g["factors"][k] - v).abs().max())
+              for k, v in c["factors"].items())
+    if not all(torch.allclose(g["factors"][k], v, rtol=1e-6, atol=1e-6)
+               for k, v in c["factors"].items()):
+        fails.append(f"upsampled factors: max abs err {err}")
+    keep_differ = int((g["keep"] != c["keep"]).sum())
+    if keep_differ:
+        fails.append(f"filter_rays_mask: {keep_differ} rays differ")
+    full = AABB
+    shrank = bool((c["box"][0] > full[0]).any() or (c["box"][1] < full[1]).any())
+    if not shrank:
+        fails.append("the mask's box did not shrink")
+    emit({"phase": "lifecycle_parity", "ok": not fails, "fails": fails,
+          "mask_grid": list(reso), "box": c["box"].tolist(),
+          "aabb": c["scene"]["aabb"].tolist(),
+          "alpha_occupied": int(c["scene"]["alpha_volume"].sum()),
+          "shrunk_grid": list(c["shrunk_grid"]), "n_voxels": n_vox,
+          "upsampled_grid": list(c["grid"]), "factor_max_abs_err": err,
+          "rays": int(all_rays.shape[0]), "rays_kept": int(c["keep"].sum()),
+          "keep_differ": keep_differ, "seconds": secs,
+          "tol": {"factors": {"rtol": 1e-6, "atol": 1e-6},
+                  "rest": "equal"}})
+    check(not fails, "lifecycle_parity: " + "; ".join(fails))
+
+
+# radiance iterations of train_run before its first alpha-mask event (the
+# reference runs 10,000): enough that the mask keeps a box smaller than
+# the scene's; then the events follow 10 and 20 iterations apart
+TRAIN_RUN_RADIANCE = 250
+
+
+def train_run_config():
+    """configs/single_light/armadillo.txt through the port's load_config,
+    with its voxel schedule (128^3 -> 300^3 over four upsamples) and its six
+    alpha-mask updates; only the iterations are compressed: the upsamples
+    20 apart and the mask updates 10 apart from TRAIN_RUN_RADIANCE, 20
+    iterations after the last upsample, and one periodic checkpoint."""
+    from tensoir_tpu_torch import config as C
+    cfg = C.load_config(str(CONFIG))
+    first = TRAIN_RUN_RADIANCE
+    upsamp = tuple(first + 20 * i for i in range(len(cfg.upsamp_list)))
+    masks = tuple(first + 10 * i
+                  for i in range(len(cfg.update_AlphaMask_list)))
+    n_iters = upsamp[-1] + 20
+    return cfg.replace(n_iters=n_iters, upsamp_list=upsamp,
+                       update_AlphaMask_list=masks, save_iters=n_iters - 10)
+
+
+@contextlib.contextmanager
+def _run_probe(loop_mod, log):
+    """Time and count what ``loop_mod.reconstruction`` does, without a
+    change to it: each step (CUDA events around it, K1/K2 launches, its
+    phase, grid and sample count), each lifecycle event and checkpoint save
+    (host clock, with the card drained before and after), and each rebuild
+    (from make_optimizer to make_train_step, the Adam init between)."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES
+    from tensoir_tpu_torch.models.field import grid_size_of
+    lc = loop_mod.LC
+    saved = {name: getattr(loop_mod, name) for name in
+             ("make_train_step", "make_optimizer", "save_checkpoint")}
+    saved_lc = {name: getattr(lc, name) for name in
+                ("update_alpha_mask", "shrink", "upsample",
+                 "filter_rays_bbox")}
+    it = [-1]
+
+    def event(name, fn):
+        def run(*a, **kw):
+            out, s = _timed(fn, *a, **kw)
+            rec = {"it": it[0], "event": name, "s": s}
+            if name == "update_alpha_mask":
+                rec["mask_grid"] = list(out[0]["alpha_volume"].shape[::-1])
+                rec["box"] = np.asarray(out[1]).tolist()
+                rec["occupied"] = int(out[0]["alpha_volume"].sum())
+            elif name == "shrink":
+                rec["grid"] = list(grid_size_of(out[0]))
+                rec["aabb"] = out[1]["aabb"].tolist()
+            elif name == "upsample":
+                rec["grid"] = list(grid_size_of(out))
+            elif name == "filter_rays_bbox":
+                rec["rays_kept"] = int(out.sum())
+            elif name == "save_checkpoint":
+                rec["file"] = Path(a[0]).name
+            log["events"].append(rec)
+            return out
+        return run
+
+    def make_optimizer(*a, **kw):
+        torch.cuda.synchronize()
+        log["rebuild_t0"] = time.perf_counter()
+        return saved["make_optimizer"](*a, **kw)
+
+    def make_train_step(fcfg, optimizer, st, w, **kw):
+        step_fn = saved["make_train_step"](fcfg, optimizer, st, w, **kw)
+        torch.cuda.synchronize()
+        log["events"].append({"it": it[0], "event": "rebuild",
+                              "s": time.perf_counter() - log["rebuild_t0"],
+                              "relight": st.is_relight,
+                              "n_samples": st.n_samples,
+                              "relight_ray_cap": st.relight_ray_cap})
+        phase = "relight" if st.is_relight else "radiance"
+
+        def step(params, opt_state, scene, batch, key, i):
+            it[0] = i
+            before = dict(LAUNCHES)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = step_fn(params, opt_state, scene, batch, key, i)
+            t1.record()
+            log["steps"].append({
+                "it": i, "phase": phase, "grid": tuple(grid_size_of(params)),
+                "n_samples": st.n_samples, "events": (t0, t1),
+                "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
+            return out
+        return step
+
+    loop_mod.make_optimizer = make_optimizer
+    loop_mod.make_train_step = make_train_step
+    loop_mod.save_checkpoint = event("save_checkpoint",
+                                     saved["save_checkpoint"])
+    for name, fn in saved_lc.items():
+        setattr(lc, name, event(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(loop_mod, name, fn)
+        for name, fn in saved_lc.items():
+            setattr(lc, name, fn)
+
+
+def _segments(steps) -> list:
+    """The run's steps grouped by phase and grid, in order: iterations,
+    median and mean step ms (CUDA events around each step), and K1/K2
+    launches per step."""
+    out = []
+    for s in steps:
+        key = (s["phase"], s["grid"], s["n_samples"])
+        if not out or out[-1]["key"] != key:
+            out.append({"key": key, "its": [], "ms": [], "launches": {}})
+        seg = out[-1]
+        seg["its"].append(s["it"])
+        seg["ms"].append(s["events"][0].elapsed_time(s["events"][1]))
+        for k, v in s["launches"].items():
+            seg["launches"][k] = seg["launches"].get(k, 0) + v
+    return [{"phase": seg["key"][0], "grid": list(seg["key"][1]),
+             "n_samples": seg["key"][2],
+             "iterations": [seg["its"][0], seg["its"][-1]],
+             "steps": len(seg["ms"]),
+             "median_step_ms": float(np.median(seg["ms"])),
+             "mean_step_ms": float(np.mean(seg["ms"])),
+             "launches_per_step": {k: v / len(seg["ms"])
+                                   for k, v in seg["launches"].items()}}
+            for seg in out]
+
+
+def phase_train_run():
+    """The port's reconstruction on the card at full width (see
+    train_run_config) on the demo's data (shadow_dataset), from random
+    weights made from the config's seed, writing its log and checkpoints to
+    a temporary directory. Then ckpt_final.npz is loaded back and its
+    field, and a deterministic render of 4,096 of the data's rays from it,
+    must equal the run's in-memory result bit for bit. Returns (launch
+    counts, launches by shape) of the run, counted from 0 just before it."""
+    import tempfile
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models.field import grid_size_of
+    from tensoir_tpu_torch.models.lifecycle import n_to_reso
+    from tensoir_tpu_torch.render.primary import render_rays
+    from tensoir_tpu_torch.train import loop
+    from tensoir_tpu_torch.train.optim import flatten
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    cfg = train_run_config()
+    t0 = time.perf_counter()
+    ds = shadow_dataset()
+    data_s = time.perf_counter() - t0
+    log = {"events": [], "steps": []}
+    shapes = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with _run_probe(loop, log), kernel_calls("train_run", shapes):
+            result = loop.reconstruction(cfg, ds, log_dir=log_dir)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        files = sorted(os.listdir(log_dir))
+        (fcfg, params, scene, extra), load_s = _timed(
+            load_checkpoint, os.path.join(log_dir, "ckpt_final.npz"),
+            device="cuda")
+    segs = _segments(log["steps"])
+    hist = result.metrics_history
+    losses = [h["total_loss"] for h in hist]
+    relit = [h["n_acc_masked"] for h in hist if "n_acc_masked" in h]
+    masks = [e for e in log["events"] if e["event"] == "update_alpha_mask"]
+    aabb = result.scene["aabb"].cpu().numpy()
+    final_grid = grid_size_of(result.params)
+    want_grid = n_to_reso(cfg.N_voxel_final, aabb)
+
+    # the reloaded field, and what it renders, against the in-memory one
+    loaded = flatten(params)
+    differ = [k for k, v in flatten(result.params).items()
+              if not torch.equal(v, loaded[k])]
+    differ += [f"scene/{k}" for k, v in result.scene.items()
+               if not torch.equal(v, scene[k])]
+    rays = torch.as_tensor(ds.all_rays[::96][:4096], device="cuda")
+    lidx = torch.zeros((rays.shape[0],), dtype=torch.int32, device="cuda")
+    kw = dict(n_samples=result.n_samples, key=None, is_relight=False,
+              white_bg=True, app_cap=cfg.app_cap_per_ray)
+    with torch.no_grad():
+        r_mem = render_rays(result.fcfg, result.params, result.scene, rays,
+                            lidx, **kw)
+        r_ck = render_rays(fcfg, params, scene, rays, lidx, **kw)
+    differ += [f"render/{k}" for k in ("rgb_map", "depth_map", "acc_map")
+               if not torch.equal(r_mem[k], r_ck[k])]
+
+    by_event = {}
+    for e in log["events"]:
+        by_event.setdefault(e["event"], []).append(e["s"])
+    res = {"phase": "train_run", "n_iters": cfg.n_iters,
+           "upsamp_list": list(cfg.upsamp_list),
+           "update_AlphaMask_list": list(cfg.update_AlphaMask_list),
+           "save_iters": cfg.save_iters, "rays": int(ds.all_rays.shape[0]),
+           "data_s": data_s, "wall_s": wall_s,
+           "step_ms_total": sum(s["mean_step_ms"] * s["steps"]
+                                for s in segs),
+           "segments": segs, "events": log["events"],
+           "event_s": {k: {"n": len(v), "total": sum(v), "max": max(v)}
+                       for k, v in by_event.items()},
+           "final_grid": list(final_grid), "final_n_samples":
+           result.n_samples, "aabb": aabb.tolist(),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "n_acc_masked": relit, "launches": launches,
+           "launches_by_shape": by_shape(shapes, cfg.n_iters),
+           "log_files": files, "ckpt_load_s": load_s,
+           "ckpt_iteration": extra["train_state"]["iteration"],
+           "reload_differ": differ,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    fails = []
+    if not masks or masks[0]["occupied"] == 0:
+        fails.append("the first alpha mask is empty")
+    elif not (np.asarray(masks[0]["box"][0]) > AABB[0]).any() and not (
+            np.asarray(masks[0]["box"][1]) < AABB[1]).any():
+        fails.append(f"the first mask's box did not shrink: {masks[0]}")
+    if not any(r > 0 for r in relit):
+        fails.append(f"no ray relit: n_acc_masked {relit}")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"non-finite loss {losses}")
+    if tuple(final_grid) != tuple(want_grid):
+        fails.append(f"final grid {final_grid}, not n_to_reso "
+                     f"{want_grid}")
+    if extra["train_state"]["iteration"] != cfg.n_iters:
+        fails.append(f"ckpt_final iteration {extra['train_state']}")
+    if differ:
+        fails.append(f"the reloaded checkpoint differs: {differ}")
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched in the run: {launches}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "train_run: " + "; ".join(fails))
+    return launches, shapes
+
+
+def train_run_cases(shapes) -> dict:
+    """Each kernel at the shape of the training run that moved the most
+    bytes (launches x N x C), on random indices, against its plain
+    version."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for i, name in enumerate(("row_gather", "row_gather_bf16",
+                              "row_scatter_add")):
+        (_, _, R, C, N), _ = max(
+            ((k, n) for k, n in shapes.items() if k[1] == name),
+            key=lambda kn: kn[1] * kn[0][3] * kn[0][4])
+        if name == "row_gather_bf16":
+            out[name] = bf16_gather_case(R, N, seed=40 + i, C=C)
+            continue
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        idx = torch.randint(0, R, (N,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        if name == "row_gather":
+            table = torch.randn((R, C), device=dev, generator=gen)
+            out[name] = {"R": R, "C": C, "N": N, **gather_case(table, idx)}
+        else:
+            val = torch.randn((N, C), device=dev, generator=gen)
+            out[name] = {"R": R, "C": C, "N": N,
+                         **scatter_case(idx, val, R)}
+    return out
+
+
 # each path's own shape for each kernel: the lookup that moves the most
 # bytes per launch on that path
 PATH_CASES = {
@@ -1311,10 +1700,12 @@ PATH_CASES = {
     "bench_train": {"row_gather": ("bench_density", "row_gather"),
                     "row_gather_bf16": ("bf16", "bench_app_bake"),
                     "row_scatter_add": ("bench_density", "row_scatter_add")},
+    # the training run's busiest shape of each kernel (train_run_cases)
+    "train_run": {name: ("train_run", name) for name in KERNEL_SOURCES},
 }
 # the path whose numbers lead each kernel's summary entry: the newest
-# slice's step
-MAIN_PATH = "bench_train"
+# slice's, the whole training run
+MAIN_PATH = "train_run"
 
 
 def kernel_summary(cases, launches, shapes) -> list:
@@ -1329,8 +1720,9 @@ def kernel_summary(cases, launches, shapes) -> list:
         for path, picks in PATH_CASES.items():
             group, sub = picks[name]
             c = cases[group][sub]
-            # a bf16 case holds its own shape, an f32 one its group's
-            shape = c if group == "bf16" else cases[group]
+            # a bf16 or train_run case holds its own shape, an f32 one its
+            # group's
+            shape = c if group in ("bf16", "train_run") else cases[group]
             at = (path, name, shape["R"], shape["C"], shape["N"])
             by_path[path] = {"launches": launches[path][name],
                              "launches_at_shape": shapes.get(at, 0),
@@ -1373,7 +1765,12 @@ def main() -> int:
                           ("bench_train", phase_bench_train)):
             launches[path], counts = run(streams)
             shapes.update(counts)
-        cases = phase_kernels(streams)
+        # after the timed steps, so that its CPU half runs after theirs
+        phase_lifecycle_parity()
+        launches["train_run"], counts = phase_train_run()
+        shapes.update(counts)
+        cases = phase_kernels(streams, {k: n for k, n in shapes.items()
+                                        if k[0] == "train_run"})
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1

@@ -1,7 +1,16 @@
-"""Coarse-to-fine lifecycle helpers (port of tensoir_tpu.models.lifecycle:
-the grid-size schedule and ``update_alpha_mask``).
+"""Coarse-to-fine lifecycle transforms (port of
+tensoir_tpu.models.lifecycle), run between training steps:
 
-``shrink`` and ``upsample`` are not ported yet.
+* ``update_alpha_mask``: dense alpha -> 3^3 max-pool dilation -> binary
+  mask -> the box of the kept grid points, the new AABB;
+* ``shrink``: every factor sliced to the new AABB's index box, with the
+  AABB corrected onto the factor grid when the mask grid differs;
+* ``upsample``: align-corners resizes of every factor to a new grid;
+* ``filter_rays_bbox`` / ``filter_rays_mask``: the training rays that hit
+  the AABB, or an occupied voxel of the alpha mask.
+
+The port's step runs eagerly, so unlike the JAX loop nothing recompiles
+after an event: the next step simply runs on the new shapes.
 """
 from __future__ import annotations
 
@@ -12,6 +21,10 @@ import torch
 import torch.nn.functional as Fn
 
 from tensoir_tpu_torch.models import field as F
+from tensoir_tpu_torch.models.field import MAT_MODE, VEC_MODE
+from tensoir_tpu_torch.ops.interp import (resize_bilinear_align_corners,
+                                          resize_line_align_corners)
+from tensoir_tpu_torch.ops.rays import sample_ray
 
 # points per chunk of the dense alpha evaluation (bounds its memory)
 _ALPHA_CHUNK_POINTS = 1 << 18
@@ -103,3 +116,109 @@ def update_alpha_mask(cfg: F.FieldConfig, params: Dict, scene: Dict,
                                           device=vol.device)
     scene["has_alpha_mask"] = torch.tensor(1.0, device=vol.device)
     return scene, new_aabb
+
+
+def _factor_keys(params: Dict):
+    """(key, axis index i, is_plane) of every VM factor in ``params``."""
+    for name in ("density", "app", "stack"):
+        for i in range(3):
+            for kind in ("line", "plane"):
+                key = f"{name}_{kind}_{i}"
+                if key in params:
+                    yield key, i, kind == "plane"
+
+
+@torch.no_grad()
+def shrink(cfg: F.FieldConfig, params: Dict, scene: Dict, new_aabb):
+    """(params, scene) with every factor sliced to ``new_aabb``'s index
+    box. The box is computed on the host in float64, exactly as the
+    reference writes it (the double round included): it decides the grid,
+    and the grid decides where every sample lands."""
+    aabb = scene["aabb"].detach().cpu().numpy().astype(np.float64)
+    new_aabb = np.asarray(new_aabb, np.float64).reshape(2, 3)
+    grid = np.asarray(F.grid_size_of(params), np.int64)      # (X, Y, Z)
+    units = (aabb[1] - aabb[0]) / (grid - 1)
+
+    t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(np.int64)
+    b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, grid)
+    t_l = np.clip(t_l, 0, None)
+
+    params = dict(params)
+    for key, i, is_plane in _factor_keys(params):
+        if is_plane:
+            m0, m1 = MAT_MODE[i]
+            sl = (slice(t_l[m1], b_r[m1]), slice(t_l[m0], b_r[m0]))
+        else:
+            sl = (slice(t_l[VEC_MODE[i]], b_r[VEC_MODE[i]]),)
+        # a copy, not a view: the old factor's memory is freed
+        params[key] = params[key][sl].clone()
+
+    # the mask grid differs from the factor grid: snap the AABB to the
+    # factor grid's nodes at the box's ends
+    mask_grid = np.asarray(scene["alpha_volume"].shape)[::-1]  # (X, Y, Z)
+    if not np.all(mask_grid == grid):
+        t_l_r = t_l / (grid - 1)
+        b_r_r = (b_r - 1) / (grid - 1)
+        corrected = np.zeros_like(new_aabb)
+        corrected[0] = (1 - t_l_r) * aabb[0] + t_l_r * aabb[1]
+        corrected[1] = (1 - b_r_r) * aabb[0] + b_r_r * aabb[1]
+        new_aabb = corrected
+
+    scene = dict(scene)
+    scene["aabb"] = torch.as_tensor(new_aabb.astype(np.float32),
+                                    device=scene["aabb"].device)
+    return params, scene
+
+
+@torch.no_grad()
+def upsample(params: Dict, reso) -> Dict:
+    """Every factor resized to the grid ``reso`` (X, Y, Z) with
+    ``align_corners``: planes [reso[m1], reso[m0]], lines reso[vec]."""
+    reso = tuple(int(r) for r in reso)
+    params = dict(params)
+    for key, i, is_plane in _factor_keys(params):
+        if is_plane:
+            m0, m1 = MAT_MODE[i]
+            params[key] = resize_bilinear_align_corners(
+                params[key], (reso[m1], reso[m0]))
+        else:
+            params[key] = resize_line_align_corners(params[key],
+                                                    reso[VEC_MODE[i]])
+    return params
+
+
+def filter_rays_bbox(all_rays: np.ndarray, aabb) -> np.ndarray:
+    """Boolean keep-mask of the rays [N, 6] that hit the AABB (numpy, on
+    the host)."""
+    aabb = np.asarray(aabb).reshape(2, 3)
+    rays_o = all_rays[:, :3]
+    rays_d = all_rays[:, 3:6]
+    vec = np.where(rays_d == 0, 1e-6, rays_d)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = np.minimum(rate_a, rate_b).max(-1)
+    t_max = np.maximum(rate_a, rate_b).min(-1)
+    return t_max > t_min
+
+
+@torch.no_grad()
+def filter_rays_mask(cfg: F.FieldConfig, scene: Dict, all_rays: np.ndarray,
+                     n_samples: int = 256, chunk: int = 51200) -> np.ndarray:
+    """Boolean keep-mask (numpy) of the rays [N, 6] with a sample in an
+    occupied voxel of the alpha mask: ``n_samples`` samples per ray at the
+    mask grid's step, ``chunk`` rays at a time on the scene's device."""
+    aabb = scene["aabb"]
+    dev = aabb.device
+    grid = scene["alpha_volume"].shape                        # (Z, Y, X)
+    step = F.step_size(aabb, tuple(int(g) for g in grid[::-1]),
+                       cfg.step_ratio)
+    out = []
+    for start in range(0, all_rays.shape[0], chunk):
+        rays = torch.as_tensor(all_rays[start:start + chunk], device=dev)
+        xyz, _, valid = sample_ray(rays[:, :3], rays[:, 3:6], aabb,
+                                   cfg.near_far[0], cfg.near_far[1], step,
+                                   n_samples)
+        occ = F.sample_alpha_mask(scene, xyz) > 0
+        out.append((occ & valid).any(-1).cpu().numpy())
+    return np.concatenate(out) if out else np.zeros((0,), bool)

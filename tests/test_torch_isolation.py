@@ -1,6 +1,8 @@
 """The port stands alone: it imports nothing of JAX or of tensoir_tpu, and
-runs a radiance, a relight and a fast-knob relight training step on the CPU
-in a process where neither can be imported."""
+runs a radiance, a relight and a fast-knob relight training step, and a
+3-iteration training run through an alpha-mask and shrink event that
+writes and reads back its checkpoint, on the CPU in a process where
+neither can be imported."""
 import re
 import subprocess
 import sys
@@ -66,6 +68,44 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(3), 10001)
     assert math.isfinite(float(m["total_loss"]))
     assert 0.0 <= float(m["sec/app_pair_occupancy"])
+    # a whole training run: 3 iterations with the alpha mask and shrink at
+    # the second, and a checkpoint written and read back
+    import os
+    import tempfile
+    import tensoir_tpu_torch.profiling  # noqa: F401
+    import tensoir_tpu_torch.utils.tb_writer  # noqa: F401
+    from tensoir_tpu_torch.config import TensoIRConfig
+    from tensoir_tpu_torch.data import get_dataset
+    from tensoir_tpu_torch.data.synthetic import SyntheticShadowDataset
+    from tensoir_tpu_torch.models.field import grid_size_of
+    from tensoir_tpu_torch.models.lifecycle import (filter_rays_mask, shrink,
+                                                    upsample)
+    from tensoir_tpu_torch.train.loop import reconstruction
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    ds = get_dataset("synthetic_sphere")(split="train", n_views=2,
+                                         img_wh=(16, 16))
+    assert SyntheticShadowDataset(n_views=1, img_wh=(4, 4)).all_rays.shape \
+        == (16, 6)
+    run_cfg = TensoIRConfig(
+        n_iters=3, batch_size=64, n_lamb_sigma=(4, 4, 4),
+        n_lamb_sh=(4, 4, 4), data_dim_color=6, featureC=16,
+        N_voxel_init=12 ** 3, N_voxel_final=12 ** 3, upsamp_list=(100,),
+        update_AlphaMask_list=(1,), step_ratio=2.0, nSamples=32,
+        numLgtSGs=8, envmap_h=2, envmap_w=4, second_nSample=8,
+        relight_ray_cap=8, secondary_tile=64, save_iters=0,
+        progress_refresh_rate=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = reconstruction(run_cfg, ds, log_dir=tmp, device="cpu")
+        assert len(res.metrics_history) == 3
+        assert all(math.isfinite(h["total_loss"]) for h in res.metrics_history)
+        assert "loss_rgb_brdf" in res.metrics_history[-1]
+        fcfg, params, scene_ck, extra = load_checkpoint(
+            os.path.join(tmp, "ckpt_final.npz"), device="cpu")
+        assert extra["train_state"]["iteration"] == 3
+        assert extra["train_state"]["relight"]
+        assert grid_size_of(params) == grid_size_of(res.params)
+        assert torch.equal(scene_ck["aabb"], res.scene["aabb"])
+        assert os.path.exists(os.path.join(tmp, "metrics.jsonl"))
     assert not any(k == "jax" or k.startswith(("jax.", "tensoir_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
