@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port (tensoir_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, as below
+    python3 chip_smoke.py --steps    # build, train, relight_train and
+                                     # bench_train only (for timing two
+                                     # trees against each other); it ends
+                                     # after them without the summary or
+                                     # the last line
 
 Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
@@ -1653,6 +1658,22 @@ def phase_train_run():
         fails.append(f"the reloaded checkpoint differs: {differ}")
     if not all(v > 0 for v in launches.values()):
         fails.append(f"a kernel was not launched in the run: {launches}")
+    # every event the schedule calls for, at its iteration: a probe that
+    # stops seeing the loop fails here. Rebuilds: the first step (before
+    # iteration 0), the shrink, and each upsample
+    first_mask = cfg.update_AlphaMask_list[0]
+    want_events = {
+        "update_alpha_mask": list(cfg.update_AlphaMask_list),
+        "shrink": [first_mask],
+        "upsample": list(cfg.upsamp_list),
+        "filter_rays_bbox": [-1, cfg.update_AlphaMask_list[1]],
+        "rebuild": sorted([-1, first_mask, *cfg.upsamp_list]),
+        "save_checkpoint": [cfg.save_iters, cfg.n_iters - 1]}
+    for name, its in want_events.items():
+        got_its = sorted(e["it"] for e in log["events"]
+                         if e["event"] == name)
+        if got_its != its:
+            fails.append(f"{name} at iterations {got_its}, not {its}")
     res["ok"] = not fails
     emit(res)
     check(not fails, "train_run: " + "; ".join(fails))
@@ -1735,7 +1756,11 @@ def kernel_summary(cases, launches, shapes) -> list:
     return summary
 
 
-def main() -> int:
+def main(argv) -> int:
+    steps_only = argv == ["--steps"]
+    if argv and not steps_only:
+        print("usage: python3 chip_smoke.py [--steps]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1757,14 +1782,17 @@ def main() -> int:
     streams, launches, shapes = {}, {}, {}
     try:
         phase_build()
-        phase_step_parity()
-        phase_relight_step_parity()
-        phase_bench_step_parity()
+        if not steps_only:
+            phase_step_parity()
+            phase_relight_step_parity()
+            phase_bench_step_parity()
         for path, run in (("train", phase_train),
                           ("relight_train", phase_relight_train),
                           ("bench_train", phase_bench_train)):
             launches[path], counts = run(streams)
             shapes.update(counts)
+        if steps_only:
+            return 0
         # after the timed steps, so that its CPU half runs after theirs
         phase_lifecycle_parity()
         launches["train_run"], counts = phase_train_run()
@@ -1788,4 +1816,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

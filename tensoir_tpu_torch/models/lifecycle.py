@@ -28,6 +28,9 @@ from tensoir_tpu_torch.ops.rays import sample_ray
 
 # points per chunk of the dense alpha evaluation (bounds its memory)
 _ALPHA_CHUNK_POINTS = 1 << 18
+# samples per ray, and rays per chunk, of the mask ray filter
+_FILTER_N_SAMPLES = 256
+_FILTER_CHUNK = 51200
 
 
 def n_to_reso(n_voxels: int, aabb) -> Tuple[int, int, int]:
@@ -203,22 +206,23 @@ def filter_rays_bbox(all_rays: np.ndarray, aabb) -> np.ndarray:
 
 
 @torch.no_grad()
-def filter_rays_mask(cfg: F.FieldConfig, scene: Dict, all_rays: np.ndarray,
-                     n_samples: int = 256, chunk: int = 51200) -> np.ndarray:
+def filter_rays_mask(cfg: F.FieldConfig, scene: Dict,
+                     all_rays: np.ndarray) -> np.ndarray:
     """Boolean keep-mask (numpy) of the rays [N, 6] with a sample in an
-    occupied voxel of the alpha mask: ``n_samples`` samples per ray at the
-    mask grid's step, ``chunk`` rays at a time on the scene's device."""
+    occupied voxel of the alpha mask: 256 samples per ray at the mask
+    grid's step, 51,200 rays at a time on the scene's device."""
     aabb = scene["aabb"]
     dev = aabb.device
     grid = scene["alpha_volume"].shape                        # (Z, Y, X)
     step = F.step_size(aabb, tuple(int(g) for g in grid[::-1]),
                        cfg.step_ratio)
     out = []
-    for start in range(0, all_rays.shape[0], chunk):
-        rays = torch.as_tensor(all_rays[start:start + chunk], device=dev)
+    for start in range(0, all_rays.shape[0], _FILTER_CHUNK):
+        rays = torch.as_tensor(all_rays[start:start + _FILTER_CHUNK],
+                               device=dev)
         xyz, _, valid = sample_ray(rays[:, :3], rays[:, 3:6], aabb,
                                    cfg.near_far[0], cfg.near_far[1], step,
-                                   n_samples)
+                                   _FILTER_N_SAMPLES)
         occ = F.sample_alpha_mask(scene, xyz) > 0
         out.append((occ & valid).any(-1).cpu().numpy())
     return np.concatenate(out) if out else np.zeros((0,), bool)

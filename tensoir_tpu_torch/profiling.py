@@ -12,6 +12,8 @@ from typing import Dict, Optional
 
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from tensoir_tpu_torch.utils.tb_writer import EventWriter
+
 
 @dataclass
 class RayThroughputMeter:
@@ -73,16 +75,13 @@ def annotate(name: str):
 class MetricsLogger:
     """JSONL metrics sink + TensorBoard event files (``utils.tb_writer``)."""
 
-    def __init__(self, log_dir: Optional[str] = None,
-                 use_tensorboard: bool = True):
+    def __init__(self, log_dir: Optional[str] = None):
         self._file = None
         self._tb = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(f"{log_dir}/metrics.jsonl", "a")
-            if use_tensorboard:
-                from tensoir_tpu_torch.utils.tb_writer import EventWriter
-                self._tb = EventWriter(log_dir)
+            self._tb = EventWriter(log_dir)
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = "train"):
         rec = {"step": step, **{f"{prefix}/{k}": float(v)

@@ -12,9 +12,11 @@ Phase schedule, as in the JAX loop:
 The step runs eagerly, so an event recompiles nothing: the next step runs
 on the new shapes (the JAX loop recompiles its jitted step at each event).
 
-Between progress refreshes nothing reads a device value: the batch ids
-come from a permutation uploaded once per epoch, and the metrics stay on
-the device until a refresh copies them to the host in one transfer.
+Between progress refreshes and events nothing waits for the device: the
+batch ids come from a permutation uploaded once per epoch from pinned
+memory without a wait, and the metrics stay on the device until a refresh
+copies them to the host in one transfer. The events (mask, shrink,
+upsample, refilter, checkpoint) read device values and so wait for it.
 
 ``cfg.resume_full`` from one of the port's checkpoints goes on exactly:
 the checkpoint also holds the step generator's and the ray sampler's
@@ -62,8 +64,8 @@ class SimpleSampler:
     ids; each is uploaded to ``device`` once, and ``nextids`` returns a
     slice of it there."""
 
-    def __init__(self, total: int, batch: int, seed: int = 0,
-                 device: DeviceLike = "cpu"):
+    def __init__(self, total: int, batch: int, device: DeviceLike,
+                 seed: int = 0):
         if total < batch:
             raise ValueError(
                 f"ray pool ({total}) smaller than the batch ({batch}); "
@@ -73,7 +75,7 @@ class SimpleSampler:
         self.curr = total
         self.ids = None
         self.rng = np.random.default_rng(seed)
-        self.device = device
+        self.device = resolve_device(device)
         # the generator's state before it drew the current permutation
         self._perm_from = None
 
@@ -81,10 +83,19 @@ class SimpleSampler:
         self.curr += self.batch
         if self.curr + self.batch > self.total:
             self._perm_from = self.rng.bit_generator.state
-            self.ids = torch.as_tensor(self.rng.permutation(self.total),
-                                       device=self.device)
+            self.ids = self._upload(self.rng.permutation(self.total))
             self.curr = 0
         return self.ids[self.curr:self.curr + self.batch]
+
+    def _upload(self, perm: np.ndarray) -> torch.Tensor:
+        """``perm`` on the device. From pageable memory the copy would make
+        the host wait for the card; from pinned memory it queues behind the
+        running step (the pinned allocator keeps the buffer until the copy
+        is done)."""
+        host = torch.from_numpy(perm)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
 
     def state(self) -> Dict:
         """Where the sampler stands, as JSON-able values: ``restore`` of it
@@ -102,8 +113,7 @@ class SimpleSampler:
         self.ids, self._perm_from = None, None
         if state["drawn"]:
             self._perm_from = state["rng"]
-            self.ids = torch.as_tensor(self.rng.permutation(self.total),
-                                       device=self.device)
+            self.ids = self._upload(self.rng.permutation(self.total))
         self.curr = state["curr"]
         return True
 
@@ -205,8 +215,8 @@ def reconstruction(
         keep = LC.filter_rays_bbox(all_rays, box)
         pool = [torch.as_tensor(a[keep], device=dev)
                 for a in (all_rays, all_rgbs, all_lidx)]
-        return pool, SimpleSampler(int(keep.sum()), cfg.batch_size,
-                                   seed=seed, device=dev)
+        return pool, SimpleSampler(int(keep.sum()), cfg.batch_size, dev,
+                                   seed=seed)
 
     (rays_f, rgbs_f, lidx_f), sampler = ray_pool(aabb, cfg.seed)
 

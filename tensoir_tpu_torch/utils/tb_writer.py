@@ -8,8 +8,7 @@ package).
   tensorflow `Event` / `Summary` / `Summary.Image` messages.
 * A minimal zlib-based PNG encoder for image summaries.
 
-Files written here load in any standard TensorBoard install; `read_events`
-parses them back for offline inspection.
+Files written here load in any standard TensorBoard install.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import socket
 import struct
 import time
 import zlib
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -136,22 +135,13 @@ class EventWriter:
         os.makedirs(log_dir, exist_ok=True)
         fname = (f"events.out.tfevents.{int(time.time())}."
                  f"{socket.gethostname()}")
-        self._path = os.path.join(log_dir, fname)
-        self._f = open(self._path, "ab")
+        self._f = open(os.path.join(log_dir, fname), "ab")
         self._write(_event(file_version="brain.Event:2"))
-
-    @property
-    def path(self) -> str:
-        return self._path
 
     def _write(self, payload: bytes) -> None:
         hdr = struct.pack("<Q", len(payload))
         self._f.write(hdr + struct.pack("<I", _masked_crc(hdr))
                       + payload + struct.pack("<I", _masked_crc(payload)))
-
-    def add_scalar(self, tag: str, value: float, step: int) -> None:
-        self._write(_event(step=step,
-                           summary=_summary_value_scalar(tag, value)))
 
     def add_scalars(self, values: Dict[str, float], step: int,
                     prefix: str = "") -> None:
@@ -170,118 +160,3 @@ class EventWriter:
         self._f.flush()
         self._f.close()
 
-
-# --------------------------------------------------------------- reader
-
-def _decode_fields(buf: bytes) -> Iterator[Tuple[int, int, bytes]]:
-    """Yield (field_number, wire_type, raw_value_bytes)."""
-    i = 0
-    while i < len(buf):
-        key = 0
-        shift = 0
-        while True:
-            b = buf[i]
-            i += 1
-            key |= (b & 0x7F) << shift
-            shift += 7
-            if not b & 0x80:
-                break
-        field, wire = key >> 3, key & 7
-        if wire == 0:
-            val = 0
-            shift = 0
-            while True:
-                b = buf[i]
-                i += 1
-                val |= (b & 0x7F) << shift
-                shift += 7
-                if not b & 0x80:
-                    break
-            yield field, wire, _varint(val)
-        elif wire == 1:
-            yield field, wire, buf[i:i + 8]
-            i += 8
-        elif wire == 2:
-            ln = 0
-            shift = 0
-            while True:
-                b = buf[i]
-                i += 1
-                ln |= (b & 0x7F) << shift
-                shift += 7
-                if not b & 0x80:
-                    break
-            yield field, wire, buf[i:i + ln]
-            i += ln
-        elif wire == 5:
-            yield field, wire, buf[i:i + 4]
-            i += 4
-        else:  # pragma: no cover
-            raise ValueError(f"unsupported wire type {wire}")
-
-
-def _varint_value(raw: bytes) -> int:
-    val = 0
-    shift = 0
-    for b in raw:
-        val |= (b & 0x7F) << shift
-        shift += 7
-    return val
-
-
-def read_events(path: str, check_crc: bool = True) -> List[Dict]:
-    """Parse an event file back into dicts (round-trip test / inspection).
-
-    Returns a list of {step, wall_time, scalars: {tag: val},
-    images: {tag: (h, w, png_bytes)}, file_version?}.
-    """
-    events = []
-    with open(path, "rb") as f:
-        data = f.read()
-    i = 0
-    while i < len(data):
-        (length,) = struct.unpack_from("<Q", data, i)
-        hdr = data[i:i + 8]
-        (hdr_crc,) = struct.unpack_from("<I", data, i + 8)
-        payload = data[i + 12:i + 12 + length]
-        (pay_crc,) = struct.unpack_from("<I", data, i + 12 + length)
-        if check_crc:
-            assert _masked_crc(hdr) == hdr_crc, "header crc mismatch"
-            assert _masked_crc(payload) == pay_crc, "payload crc mismatch"
-        i += 12 + length + 4
-
-        ev: Dict = {"scalars": {}, "images": {}}
-        for field, wire, raw in _decode_fields(payload):
-            if field == 1 and wire == 1:
-                ev["wall_time"] = struct.unpack("<d", raw)[0]
-            elif field == 2 and wire == 0:
-                ev["step"] = _varint_value(raw)
-            elif field == 3 and wire == 2:
-                ev["file_version"] = raw.decode()
-            elif field == 5 and wire == 2:
-                for f2, w2, raw2 in _decode_fields(raw):
-                    if f2 != 1:
-                        continue
-                    tag, sval, img = None, None, None
-                    for f3, w3, raw3 in _decode_fields(raw2):
-                        if f3 == 1 and w3 == 2:
-                            tag = raw3.decode()
-                        elif f3 == 2 and w3 == 5:
-                            sval = struct.unpack("<f", raw3)[0]
-                        elif f3 == 4 and w3 == 2:
-                            h = w = 0
-                            png = b""
-                            for f4, w4, raw4 in _decode_fields(raw3):
-                                if f4 == 1:
-                                    h = _varint_value(raw4)
-                                elif f4 == 2:
-                                    w = _varint_value(raw4)
-                                elif f4 == 4:
-                                    png = raw4
-                            img = (h, w, png)
-                    if tag is not None and sval is not None:
-                        ev["scalars"][tag] = sval
-                    if tag is not None and img is not None:
-                        ev["images"][tag] = img
-        events.append(ev)
-    return events

@@ -108,7 +108,7 @@ def test_shrink_and_upsample_match_jax(field, mask_grid):
     assert_tree_close(tp3, to_numpy(jp3), rtol=1e-6, atol=5e-7)
 
 
-def test_ray_filters_match_jax(field):
+def test_ray_filters_match_jax(field, monkeypatch):
     jcfg, jp, js = field
     tcfg = port_cfg(jcfg)
     js1, box = JLC.update_alpha_mask(jcfg, jp, js, GRID)
@@ -119,10 +119,10 @@ def test_ray_filters_match_jax(field):
         keep = TLC.filter_rays_bbox(all_rays, aabb)
         assert np.array_equal(keep, JLC.filter_rays_bbox(all_rays, aabb))
         assert keep.any() and not keep.all()
-    # a ragged last chunk on both sides
-    t_keep = TLC.filter_rays_mask(tcfg, ts1, all_rays, n_samples=64,
-                                  chunk=500)
-    j_keep = JLC.filter_rays_mask(jcfg, js1, all_rays, n_samples=64,
+    # the port's 256 samples per ray; a ragged last chunk on both sides
+    monkeypatch.setattr(TLC, "_FILTER_CHUNK", 500)
+    t_keep = TLC.filter_rays_mask(tcfg, ts1, all_rays)
+    j_keep = JLC.filter_rays_mask(jcfg, js1, all_rays, n_samples=256,
                                   chunk=500)
     assert t_keep.dtype == np.bool_ and t_keep.shape == (all_rays.shape[0],)
     assert np.array_equal(t_keep, j_keep)
