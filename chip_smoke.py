@@ -72,8 +72,26 @@ Phases, one JSON line each, in this order:
                the sphere over a disc), with one periodic checkpoint; per
                phase and grid the steps' median ms and launches, each
                event's seconds; then ckpt_final.npz is reloaded and must
-               render the same as the run's result. Its launches are the
-               summary line's (MAIN_PATH)
+               render the same as the run's result
+  eval_parity  one eval chunk (every ray relit under 512 fixed directions,
+               96 secondary samples) of train_run's reloaded field at full
+               width, 256 rays, on the card and on the CPU: every map
+  eval         evaluation_iter(test_all=True, compute_extra_metrics=True)
+               of train_run's reloaded ckpt_final on one EVAL_WH x EVAL_WH
+               test view of the shadow scene, with its PNGs, as the CLI's
+               final render_test runs it: seconds per view, chunks, tiles
+               and K1/K2 launches per chunk (K2 must stay 0), peak memory,
+               the metrics; then eval_breakdown, one profiled chunk
+  cli_run      python -m tensoir_tpu_torch.train_tensoir on
+               configs/single_light/armadillo.txt, in this process, on a
+               rotated-lights scene written to a temporary directory (3
+               views of 800x800 for training, 2 of 200x200 for test, PNG
+               rows through all five filters, a 1024x2048 probe): the
+               loaders, 200 radiance iterations, one alpha mask with the
+               shrink, one upsample to 300^3, relight iterations with two
+               evals, ckpt_final, the final render_test; then render-only
+               from ckpt_final, whose metrics must equal the run's bit for
+               bit. Its launches are the summary line's (MAIN_PATH)
   kernels      each kernel against its plain PyTorch version on the card:
                at the shapes the training steps give it on random indices
                (K1 on bf16 rows at the baked grids', the app bake's and the
@@ -84,7 +102,9 @@ Phases, one JSON line each, in this order:
                every route (edge). Max abs error, kernel / plain / library
                ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
                bound_sector_ms (every row read as whole 32-byte sectors);
-               and at the training run's busiest shape of each kernel
+               at the busiest shape of each kernel in the training run,
+               the eval and the CLI run, and at the eval's density and
+               appearance lookups
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -429,10 +449,11 @@ def slice_sizes():
     return cfg, reso, n_samples
 
 
-def phase_kernels(streams, train_run_shapes):
-    """Random-index cases at the steps' shapes, the training run's busiest
-    (from its launches by shape, ``train_run_shapes``) and the probe's, the
-    index streams the steps recorded (``streams``) and the edge cases."""
+def phase_kernels(streams, busiest):
+    """Random-index cases at the steps' shapes, at the busiest shapes of
+    the training run, the eval and the CLI run (from their launches by
+    shape, ``busiest``: path -> counts) and the probe's, the index streams
+    the steps recorded (``streams``) and the edge cases."""
     cfg, reso, n_samples = slice_sizes()
     _, rreso, _ = relight_sizes(cfg)
     plane_rows = (reso[0] - 1) * (reso[1] - 1)
@@ -478,7 +499,9 @@ def phase_kernels(streams, train_run_shapes):
         "bench_alpha_mask": bf16_gather_case(127 ** 3, BATCH * 192, seed=14),
         "bench_app_bake": bf16_gather_case(63 ** 3, 14336 * 12, seed=15,
                                            C=8 * 27)}
-    out["train_run"] = train_run_cases(train_run_shapes)
+    for i, (path, counts) in enumerate(sorted(busiest.items())):
+        out[path] = busiest_cases(counts, seed=40 + 10 * i)
+    out["eval_lookups"] = eval_lookup_cases(busiest["eval"])
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
     emit({"phase": "kernels", "ok": True, "cases": out})
@@ -1562,12 +1585,14 @@ def phase_train_run():
     a temporary directory. Then ckpt_final.npz is loaded back and its
     field, and a deterministic render of 4,096 of the data's rays from it,
     must equal the run's in-memory result bit for bit. Returns (launch
-    counts, launches by shape) of the run, counted from 0 just before it."""
+    counts, launches by shape) of the run, counted from 0 just before it,
+    and the reloaded field as the eval phases take it (fcfg, params, scene,
+    n_samples)."""
     import tempfile
     import torch
     from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from tensoir_tpu_torch.models.field import grid_size_of
-    from tensoir_tpu_torch.models.lifecycle import n_to_reso
+    from tensoir_tpu_torch.models.lifecycle import cal_n_samples, n_to_reso
     from tensoir_tpu_torch.render.primary import render_rays
     from tensoir_tpu_torch.train import loop
     from tensoir_tpu_torch.train.optim import flatten
@@ -1677,25 +1702,375 @@ def phase_train_run():
     res["ok"] = not fails
     emit(res)
     check(not fails, "train_run: " + "; ".join(fails))
+    # the n_samples a render-only run of the CLI derives from the grid
+    n_samples = min(cfg.nSamples, cal_n_samples(grid_size_of(params),
+                                                cfg.step_ratio))
+    check(n_samples == result.n_samples,
+          f"n_samples {n_samples} of the reloaded grid, {result.n_samples} "
+          f"in the run")
+    return launches, shapes, (fcfg, params, scene, n_samples)
+
+
+# the eval's view, cut from a TensoIR-Synthetic view's 800 x 800: one
+# 800 x 800 view took 226.0 s on the card (PERF.md), 400 x 400 a quarter
+EVAL_WH = 400
+# rays of eval_parity (both devices render them, the CPU at full width)
+EVAL_PARITY_RAYS = 256
+
+
+def eval_dataset():
+    """One test view of the demo's shadow scene at EVAL_WH x EVAL_WH."""
+    from tensoir_tpu_torch.data.synthetic import SyntheticShadowDataset
+    return SyntheticShadowDataset(split="test", n_views=1,
+                                  img_wh=(EVAL_WH, EVAL_WH))
+
+
+def eval_knobs(cfg) -> dict:
+    """The eval knobs the CLI passes from the config."""
+    return dict(chunk=cfg.batch_size_test, second_n_sample=cfg.second_nSample,
+                secondary_tile=cfg.secondary_tile)
+
+
+@contextlib.contextmanager
+def _eval_probe(log: list):
+    """Record each eval chunk the block renders: which chunk function
+    (``main``, or ``gbuf`` for the rescale ratio's G-buffer chunks), its
+    time (CUDA events), its K1/K2 launches and its secondary tiles. Wraps
+    ``render.eval.make_eval_chunk_fn``, which ``evaluation_iter`` calls."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES
+    from tensoir_tpu_torch.render import eval as E
+    from tensoir_tpu_torch.render import secondary
+    make = E.make_eval_chunk_fn
+
+    def wrapped(cfg, **kw):
+        fn, chunk = make(cfg, **kw)
+        kind = "gbuf" if kw.get("relight_ray_cap") == 1 else "main"
+
+        def run(params, scene, rays, light_idx):
+            before = dict(LAUNCHES)
+            tiles = secondary.MARCHED["tiles"]
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(params, scene, rays, light_idx)
+            t1.record()
+            log.append({"kind": kind, "events": (t0, t1),
+                        "tiles": secondary.MARCHED["tiles"] - tiles,
+                        "launches": {k: LAUNCHES[k] - before[k]
+                                     for k in LAUNCHES}})
+            return out
+        return run, chunk
+
+    E.make_eval_chunk_fn = wrapped
+    try:
+        yield
+    finally:
+        E.make_eval_chunk_fn = make
+
+
+def _chunk_stats(chunks) -> dict:
+    """Per kind of chunk: count, median and total ms, secondary tiles and
+    launches per chunk."""
+    out = {}
+    for kind in ("main", "gbuf"):
+        mine = [c for c in chunks if c["kind"] == kind]
+        if not mine:
+            continue
+        ms = [c["events"][0].elapsed_time(c["events"][1]) for c in mine]
+        out[kind] = {
+            "chunks": len(mine), "median_ms": float(np.median(ms)),
+            "total_s": sum(ms) / 1e3,
+            "tiles_per_chunk": sorted({c["tiles"] for c in mine}),
+            "launches_per_chunk": {
+                k: sum(c["launches"][k] for c in mine) / len(mine)
+                for k in mine[0]["launches"]}}
+    return out
+
+
+def phase_eval_parity(trained):
+    """One eval chunk of train_run's reloaded field at full width (the
+    config's eval: 512 fixed light directions per relit ray, every ray
+    relit, 96 secondary samples in tiles of 16384, march cap 256, app cap
+    64) on the card and on the CPU from the same field: EVAL_PARITY_RAYS
+    rays spread over the eval view, one chunk. Tolerance: each map within
+    1e-4 absolute on all but 1 % of the rays; a rounding at a weight
+    threshold, a top-k cut-off or the app stage's pair cap moves whole
+    samples or pairs of the few rays it reaches."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.render.eval import make_eval_chunk_fn
+    fcfg, params, scene, n_samples = trained
+    cfg = C.load_config(str(CONFIG))
+    rays = eval_dataset().all_rays
+    rays = rays[::rays.shape[0] // EVAL_PARITY_RAYS][:EVAL_PARITY_RAYS]
+    n = rays.shape[0]
+    fn, _ = make_eval_chunk_fn(fcfg, n_samples=n_samples,
+                               **dict(eval_knobs(cfg), chunk=n))
+    maps, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p, sc = (params, scene) if dev == "cuda" else (_to(params, dev),
+                                                       _to(scene, dev))
+        out, secs[dev] = _timed(
+            fn, p, sc, torch.as_tensor(rays, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev))
+        maps[dev] = {k: v.float().reshape(n, -1).cpu()
+                     for k, v in out.items() if v.dim() >= 1}
+    tol, frac = 1e-4, 0.01
+    report, fails = {}, []
+    for k, c in maps["cpu"].items():
+        d = (maps["cuda"][k] - c).abs().amax(1)
+        over = int((d > tol).sum())
+        report[k] = {"max_abs_err": float(d.max()), "rays_over_tol": over}
+        if over > frac * n:
+            fails.append(f"{k}: {over} of {n} rays over {tol}")
+    relit = int(maps["cpu"]["acc_mask"].sum())
+    if not relit:
+        fails.append("no ray of the chunk reaches the surface")
+    emit({"phase": "eval_parity", "ok": not fails, "fails": fails,
+          "rays": n, "surface_rays": relit, "n_samples": n_samples,
+          "maps": report, "seconds": secs,
+          "tol": {"abs": tol, "rays_over_frac": frac}})
+    check(not fails, "eval_parity: " + "; ".join(fails))
+
+
+def phase_eval(trained):
+    """evaluation_iter(test_all=True, compute_extra_metrics=True) of
+    train_run's reloaded ckpt_final on one EVAL_WH x EVAL_WH view of the
+    shadow scene, with its artifacts written to a temporary directory, as
+    the CLI's final render_test runs it: seconds per view, chunks, tiles
+    and K1/K2 launches per chunk, peak memory, the metrics; then one
+    profiled chunk (eval_breakdown: device-busy ms and idle share). K2 must
+    not launch: no gradient of a table is asked for. Returns (launch
+    counts, launches by shape, chunk statistics)."""
+    import tempfile
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.render.eval import (evaluation_iter,
+                                               make_eval_chunk_fn)
+    fcfg, params, scene, n_samples = trained
+    cfg = C.load_config(str(CONFIG))
+    ds = eval_dataset()
+    chunks, shapes = [], {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        # the eval's own notes go to stderr: stdout holds the JSON lines
+        with _eval_probe(chunks), kernel_calls("eval", shapes), \
+                contextlib.redirect_stdout(sys.stderr):
+            metrics = evaluation_iter(
+                fcfg, params, scene, ds, n_samples=n_samples,
+                save_path=out_dir, test_all=True, compute_extra_metrics=True,
+                **eval_knobs(cfg))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        files = sorted(os.path.relpath(os.path.join(r, f), out_dir)
+                       for r, _, fs in os.walk(out_dir) for f in fs)
+    stats = _chunk_stats(chunks)
+    main = stats.get("main", {})
+    n_rays = EVAL_WH * EVAL_WH
+    want_chunks = -(-n_rays // cfg.batch_size_test)
+    want_tiles = cfg.batch_size_test * fcfg.envmap_h * fcfg.envmap_w \
+        // cfg.secondary_tile
+    res = {"phase": "eval", "view": [EVAL_WH, EVAL_WH], "rays": n_rays,
+           "n_samples": n_samples, "seconds_per_view": wall_s,
+           "main_pass_s": main.get("total_s"),
+           "gbuf_pass_s": stats.get("gbuf", {}).get("total_s"),
+           "chunks": stats, "launches": launches,
+           "launches_by_shape": by_shape(shapes, max(len(chunks), 1)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "metrics": metrics, "files": files}
+    fails = []
+    if main.get("chunks") != want_chunks:
+        fails.append(f"{main.get('chunks')} main chunks, not {want_chunks}")
+    if main.get("tiles_per_chunk") != [want_tiles]:
+        fails.append(f"tiles per chunk {main.get('tiles_per_chunk')}, not "
+                     f"{want_tiles}")
+    if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
+        fails.append(f"K1 not launched in the eval: {launches}")
+    if launches["row_scatter_add"] != 0:
+        fails.append(f"K2 launched {launches['row_scatter_add']} times in "
+                     f"the eval")
+    want = {"psnr_nvs", "psnr_nvs_brdf", "ssim_nvs", "ssim_nvs_brdf",
+            "normal_mae_deg", "psnr_albedo_single", "psnr_albedo_three",
+            "ssim_albedo_single", "ssim_albedo_three"}
+    if set(metrics) != want or not all(math.isfinite(v)
+                                       for v in metrics.values()):
+        fails.append(f"metrics {metrics}")
+    panels = {"nvs_with_radiance_field/000.png", "nvs_with_brdf/000.png",
+              "normal/000.png", "brdf/000.png", "acc_map/000.png",
+              "envir_map/envirmap.png", "metrics_record.txt"}
+    if not panels <= set(files):
+        fails.append(f"artifacts missing: {sorted(panels - set(files))}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "eval: " + "; ".join(fails))
+    fn, chunk = make_eval_chunk_fn(fcfg, n_samples=n_samples,
+                                   **eval_knobs(cfg))
+    rays = torch.as_tensor(ds.all_rays[n_rays // 2:n_rays // 2 + chunk],
+                           device="cuda")
+    lidx = torch.zeros((chunk,), dtype=torch.int32, device="cuda")
+    emit_breakdown("eval_breakdown", lambda: fn(params, scene, rays, lidx),
+                   main.get("median_ms", float("nan")))
+    return launches, shapes, stats
+
+
+# the CLI run: its views (800 x 800 training views, 200 x 200 test views)
+# and radiance iterations before its one alpha-mask event
+CLI_VIEWS = (("train", 3, 800), ("test", 2, 200))
+CLI_RADIANCE = 200
+CLI_VIS_EVERY = 5
+
+
+def phase_cli_run():
+    """The port's CLI on configs/single_light/armadillo.txt, in this
+    process: a rotated-lights scene of the shadow scene written to a
+    temporary directory (write_shadow_scene: CLI_VIEWS, every PNG's rows
+    through the five filter types, a 1024 x 2048 sunset.hdr), then
+    ``python -m tensoir_tpu_torch.train_tensoir`` overriding only the data
+    and log paths, the iterations and the schedule (one alpha mask with
+    the shrink at CLI_RADIANCE, one upsample to 300^3 five iterations
+    later, seven relight iterations after it), N_vis 1, vis_every and
+    test_number 2: the loaders, training with the evals during it,
+    ckpt_final, the final render_test over both test views; then
+    ``--render_only 1 --render_test 1 --ckpt ckpt_final.npz``, whose
+    metrics must equal the run's final render_test bit for bit. Launch
+    counts from 0 before the run to the end of the render-only run; every
+    kernel must launch. Returns (launch counts, launches by shape)."""
+    import tempfile
+    import torch
+    from tensoir_tpu_torch import train_tensoir
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.train import loop
+    from tensoir_tpu_torch.utils.png import read_png
+    n_iters = CLI_RADIANCE + 12
+    want_evals = [it for it in range(CLI_RADIANCE, n_iters)
+                  if it % CLI_VIS_EVERY == CLI_VIS_EVERY - 1]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, hdr, logs = (os.path.join(tmp, d) for d in ("scene", "hdr",
+                                                           "log"))
+        t0 = time.perf_counter()
+        write_shadow_scene(data, hdr, views=CLI_VIEWS)
+        write_s = time.perf_counter() - t0
+        png = os.path.join(data, "train_000", "rgba_sunset_000.png")
+        decode_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_png(png)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        argv = ["--config", str(CONFIG), "--datadir", data, "--hdrdir", hdr,
+                "--basedir", logs, "--n_iters", str(n_iters),
+                "--update_AlphaMask_list", f"[{CLI_RADIANCE}]",
+                "--upsamp_list", f"[{CLI_RADIANCE + 5}]", "--N_vis", "1",
+                "--vis_every", str(CLI_VIS_EVERY), "--test_number", "2"]
+        log, chunks, shapes = {"events": [], "steps": []}, [], {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        # the CLI's printing goes to stderr: stdout holds the JSON lines
+        with _run_probe(loop, log), _eval_probe(chunks), \
+                kernel_calls("cli_run", shapes), \
+                contextlib.redirect_stdout(sys.stderr):
+            trained = train_tensoir.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            run_dir = os.path.join(logs, "armadillo")
+            files = sorted(os.path.relpath(os.path.join(r, f), run_dir)
+                           for r, _, fs in os.walk(run_dir) for f in fs)
+            evals = open(os.path.join(run_dir, "imgs_vis",
+                                      "metrics_record.txt")).read()
+            n_train_chunks = len(chunks)
+            t1 = time.perf_counter()
+            again = train_tensoir.main(argv + [
+                "--render_only", "1", "--render_test", "1", "--ckpt",
+                os.path.join(run_dir, "ckpt_final.npz")])
+            torch.cuda.synchronize()
+            render_only_s = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+    segs = _segments(log["steps"])
+    final, reloaded = trained.get("imgs_test_all"), again.get("imgs_test_all")
+    res = {"phase": "cli_run", "views": [list(v) for v in CLI_VIEWS],
+           "scene_write_s": write_s, "png_decode_ms_800": decode_ms,
+           "png_shape": list(img.shape), "n_iters": n_iters,
+           "train_and_eval_s": train_s, "render_only_s": render_only_s,
+           "segments": segs,
+           "events": [e for e in log["events"] if e["event"] != "rebuild"],
+           "eval_chunks": {"run": _chunk_stats(chunks[:n_train_chunks]),
+                           "render_only": _chunk_stats(
+                               chunks[n_train_chunks:])},
+           "evals_during_training": evals.splitlines(),
+           "final_render_test": final, "render_only_test": reloaded,
+           "launches": launches, "files": files,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    fails = []
+    if final is None or final != reloaded:
+        fails.append(f"render-only metrics {reloaded} differ from the run's "
+                     f"{final}")
+    if len(res["evals_during_training"]) != len(want_evals) or not all(
+            ln.startswith(f"Iteration:{it:06d}: ")
+            for ln, it in zip(res["evals_during_training"], want_evals)):
+        fails.append(f"evals during training {res['evals_during_training']}"
+                     f", not at {want_evals}")
+    want = {"ckpt_final.npz", "config.txt", "metrics.jsonl",
+            "imgs_test_all/metrics_record.txt",
+            "imgs_test_all/envir_map/envirmap.png",
+            "imgs_vis/metrics_record.txt"}
+    want |= {f"imgs_test_all/{d}/{v:03d}.png" for v in range(2) for d in (
+        "nvs_with_radiance_field", "nvs_with_brdf", "normal", "brdf",
+        "acc_map")}
+    want |= {f"imgs_vis/{d}/{it:06d}_000.png" for it in want_evals
+             for d in ("nvs_with_radiance_field", "acc_map")}
+    missing = sorted(want - set(files))
+    if missing or not any(f.startswith("events.out.tfevents")
+                          for f in files):
+        fails.append(f"artifacts missing: {missing}")
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched in the CLI run: {launches}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "cli_run: " + "; ".join(fails))
     return launches, shapes
 
 
-def train_run_cases(shapes) -> dict:
-    """Each kernel at the shape of the training run that moved the most
-    bytes (launches x N x C), on random indices, against its plain
-    version."""
+def eval_lookup_cases(shapes) -> dict:
+    """Both kernels at the eval's primary VM lookups, on random indices:
+    the density at the culled march (C 64, N = chunk x march cap 256) and
+    the appearance at the app cap (C 192, N = chunk x 64), each on the
+    largest of the three planes the eval gathered from."""
+    def largest(C, N):
+        return max(R for (_, name, R, c, n) in shapes
+                   if name == "row_gather" and (c, n) == (C, N))
+    chunk = 4096
+    return {"density": kernel_case(largest(64, chunk * 256), 64, chunk * 256,
+                                   seed=70),
+            "appearance": kernel_case(largest(192, chunk * 64), 192,
+                                      chunk * 64, seed=71)}
+
+
+def busiest_cases(shapes, seed: int) -> dict:
+    """Each kernel at the shape of one path (a whole run, or the eval)
+    that moved the most bytes (launches x N x C), on random indices,
+    against its plain version; kernels the path never launched are left
+    out."""
     import torch
     dev = torch.device("cuda")
     out = {}
     for i, name in enumerate(("row_gather", "row_gather_bf16",
                               "row_scatter_add")):
-        (_, _, R, C, N), _ = max(
-            ((k, n) for k, n in shapes.items() if k[1] == name),
-            key=lambda kn: kn[1] * kn[0][3] * kn[0][4])
-        if name == "row_gather_bf16":
-            out[name] = bf16_gather_case(R, N, seed=40 + i, C=C)
+        mine = [(k, n) for k, n in shapes.items() if k[1] == name]
+        if not mine:
             continue
-        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        (_, _, R, C, N), _ = max(mine,
+                                 key=lambda kn: kn[1] * kn[0][3] * kn[0][4])
+        if name == "row_gather_bf16":
+            out[name] = bf16_gather_case(R, N, seed=seed + i, C=C)
+            continue
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
         idx = torch.randint(0, R, (N,), device=dev, generator=gen,
                             dtype=torch.int32)
         if name == "row_gather":
@@ -1721,18 +2096,26 @@ PATH_CASES = {
     "bench_train": {"row_gather": ("bench_density", "row_gather"),
                     "row_gather_bf16": ("bf16", "bench_app_bake"),
                     "row_scatter_add": ("bench_density", "row_scatter_add")},
-    # the training run's busiest shape of each kernel (train_run_cases)
+    # the busiest shape of each kernel in the training run, the eval (K2
+    # does not launch there: its entry carries the training run's case and
+    # 0 launches) and the CLI run (busiest_cases)
     "train_run": {name: ("train_run", name) for name in KERNEL_SOURCES},
+    "eval": {"row_gather": ("eval", "row_gather"),
+             "row_gather_bf16": ("eval", "row_gather_bf16"),
+             "row_scatter_add": ("train_run", "row_scatter_add")},
+    "cli_run": {name: ("cli_run", name) for name in KERNEL_SOURCES},
 }
 # the path whose numbers lead each kernel's summary entry: the newest
-# slice's, the whole training run
-MAIN_PATH = "train_run"
+# slice's, the CLI run (training, the evals, render-only)
+MAIN_PATH = "cli_run"
+_OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run")
 
 
-def kernel_summary(cases, launches, shapes) -> list:
+def kernel_summary(cases, launches, shapes, eval_chunks) -> list:
     """One entry per kernel: the main path's launches beside its own shape
     and times, and each path's under ``by_path`` with the launches at that
-    shape (``launches_at_shape``)."""
+    shape (``launches_at_shape``); the eval's also with its launches per
+    chunk of the main pass and of the G-buffer pass (``eval_chunks``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []
@@ -1743,12 +2126,16 @@ def kernel_summary(cases, launches, shapes) -> list:
             c = cases[group][sub]
             # a bf16 or train_run case holds its own shape, an f32 one its
             # group's
-            shape = c if group in ("bf16", "train_run") else cases[group]
+            shape = c if group in _OWN_SHAPE_GROUPS else cases[group]
             at = (path, name, shape["R"], shape["C"], shape["N"])
             by_path[path] = {"launches": launches[path][name],
                              "launches_at_shape": shapes.get(at, 0),
                              "shape": {k: shape[k] for k in ("R", "C", "N")},
                              **{k: c[k] for k in keys}}
+            if path == "eval":
+                by_path[path]["launches_per_chunk"] = {
+                    kind: st["launches_per_chunk"][name]
+                    for kind, st in eval_chunks.items()}
         main_path = by_path[MAIN_PATH]
         summary.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, **main_path,
@@ -1795,14 +2182,21 @@ def main(argv) -> int:
             return 0
         # after the timed steps, so that its CPU half runs after theirs
         phase_lifecycle_parity()
-        launches["train_run"], counts = phase_train_run()
+        launches["train_run"], counts, trained = phase_train_run()
         shapes.update(counts)
-        cases = phase_kernels(streams, {k: n for k, n in shapes.items()
-                                        if k[0] == "train_run"})
+        phase_eval_parity(trained)
+        launches["eval"], counts, eval_chunks = phase_eval(trained)
+        shapes.update(counts)
+        del trained
+        launches["cli_run"], counts = phase_cli_run()
+        shapes.update(counts)
+        cases = phase_kernels(streams, {
+            path: {k: n for k, n in shapes.items() if k[0] == path}
+            for path in ("train_run", "eval", "cli_run")})
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1
-    emit({"kernels": kernel_summary(cases, launches, shapes)})
+    emit({"kernels": kernel_summary(cases, launches, shapes, eval_chunks)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -7,16 +7,24 @@ background. Ground-truth renders come from closed-form ray/sphere
 intersection, so the dataset satisfies the same data contract as the real
 loaders (SURVEY.md §2.2: flat `all_rays [N,6]`, `all_rgbs [N,3]`,
 `all_light_idx [N,1]`, `scene_bbox`, `near_far`, `white_bg`, `img_wh`).
+``write_shadow_scene`` writes the shadow scene to disk in the
+TensoIR-Synthetic layout, for the file loaders and the CLI.
 """
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 
+from tensoir_tpu_torch.data.hdr import write_hdr
 from tensoir_tpu_torch.data.ray_utils import (
     get_ray_directions_blender,
     get_rays,
     look_at,
 )
+from tensoir_tpu_torch.data.tensoir import _view_rays
+from tensoir_tpu_torch.utils.png import write_png
 
 
 def _sphere_hit(rays_o, rays_d, center, radius):
@@ -233,14 +241,11 @@ class SyntheticShadowDataset(SyntheticSphereDataset):
         relighting benchmark's ground truth. Not ported yet."""
         raise NotImplementedError(
             "render_env_gt needs the lat-long environment lookup of "
-            "relighting, which is not ported yet (ROADMAP queue 1 item 6)")
+            "relighting, which is not ported yet (ROADMAP queue 1 item 6b)")
 
-    def __getitem__(self, k: int):
-        item = super().__getitem__(k)
-        v = self.view(k)
-        n = v["rays"].shape[0]
-        # per-pixel GT albedo (sphere vs plane)
-        rays_o, rays_d = v["rays"][:, :3], v["rays"][:, 3:6]
+    def albedo_gt(self, rays_o, rays_d) -> np.ndarray:
+        """Per-ray GT albedo of the first surface hit (sphere or plane;
+        the plane's outside the disc too), float32 [N, 3]."""
         hit_s, t_s = _sphere_hit(rays_o, rays_d, self.SPHERE_C, self.SPHERE_R)
         dz = rays_d[:, 2]
         t_p = np.where(np.abs(dz) > 1e-8,
@@ -251,7 +256,67 @@ class SyntheticShadowDataset(SyntheticSphereDataset):
         t_s = np.where(hit_s, t_s, np.inf)
         t_p = np.where(hit_p, t_p, np.inf)
         use_s = t_s < t_p
-        albedo = np.where(use_s[:, None], self.albedo[None],
-                          self.PLANE_ALBEDO[None]).astype(np.float32)
+        return np.where(use_s[:, None], self.albedo[None],
+                        self.PLANE_ALBEDO[None]).astype(np.float32)
+
+    def __getitem__(self, k: int):
+        item = super().__getitem__(k)
+        v = self.view(k)
+        albedo = self.albedo_gt(v["rays"][:, :3], v["rays"][:, 3:6])
         item["albedo"] = np.where(v["masks"][:, None] > 0, albedo, 1.0)
         return item
+
+
+def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
+                                                ("test", 1, 200)),
+                       env_hw=(1024, 2048)) -> None:
+    """The shadow scene as a TensoIR-Synthetic scene on disk, for the
+    rotated-lights loader with light ``sunset`` at rotation ``000``:
+    ``<root>/<split>_NNN/`` view folders with metadata.json (a 0.69 rad
+    field of view), ``rgba_sunset_000.png``, albedo.png and normal.png, and
+    ``<hdr_dir>/sunset.hdr`` of ``env_hw``. ``views``: (split, count,
+    square size) per split. Each image is the scene's analytic GT on the
+    rays the loader computes from the view's metadata (alpha 255 on the
+    sphere and the disc, 0 elsewhere); its PNG rows take the five filter
+    types in turn. The probe is a smooth sky with a sun, RGBE."""
+    filters = (0, 1, 2, 3, 4)
+    gt = SyntheticShadowDataset(split="train", n_views=1, img_wh=(1, 1))
+    for split, count, size in views:
+        for k in range(count):
+            ang = 2 * np.pi * k / count + (0.0 if split == "train" else 0.4)
+            z = 1.2 + 0.8 * np.sin(ang * 1.7)
+            eye = np.array([np.cos(ang), np.sin(ang), z / 4.0]) * 4.0
+            c2w = np.concatenate([look_at(eye / np.linalg.norm(eye) * 4.0),
+                                  [[0, 0, 0, 1]]], 0)
+            meta = {"imw": size, "imh": size, "cam_angle_x": 0.69,
+                    "cam_transform_mat": ",".join(
+                        repr(float(x)) for x in c2w.reshape(-1))}
+            rays, _, _ = _view_rays(meta, 1.0)
+            o, d = rays[:, :3], rays[:, 3:6]
+            rgb, normal, _, mask = gt._render_gt(o, d)
+            alpha = (mask > 0)[:, None]
+            albedo = np.where(alpha, gt.albedo_gt(o, d), 1.0)
+
+            def rgba(x):
+                x8 = np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
+                return np.concatenate(
+                    [x8, (alpha * 255).astype(np.uint8)], 1).reshape(
+                        size, size, 4)
+
+            view = os.path.join(root, f"{split}_{k:03d}")
+            os.makedirs(view, exist_ok=True)
+            with open(os.path.join(view, "metadata.json"), "w") as f:
+                json.dump(meta, f)
+            write_png(os.path.join(view, "rgba_sunset_000.png"),
+                      rgba(rgb), filters)
+            write_png(os.path.join(view, "albedo.png"), rgba(albedo), filters)
+            write_png(os.path.join(view, "normal.png"),
+                      rgba(normal * 0.5 + 0.5), filters)
+    h, w = env_hw
+    v = np.linspace(0.0, 1.0, h)[:, None, None]
+    u = np.linspace(0.0, 1.0, w)[None, :, None]
+    sky = (0.3 + 0.9 * (1.0 - v)) * np.array([0.6, 0.75, 1.0])
+    sun = 40.0 * np.exp(-((u - 0.3) ** 2 + (v - 0.25) ** 2) / 2e-4)
+    os.makedirs(hdr_dir, exist_ok=True)
+    write_hdr(os.path.join(hdr_dir, "sunset.hdr"),
+              (sky + sun * np.array([1.0, 0.9, 0.7])).astype(np.float32))

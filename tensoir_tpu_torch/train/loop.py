@@ -138,7 +138,7 @@ def _refuse_unported(cfg: TensoIRConfig) -> None:
         if getattr(cfg, name) > 1:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)}: the grouped march is not "
-                f"ported yet (ROADMAP queue 1 item 6)")
+                f"ported yet (ROADMAP queue 1 item 6d)")
 
 
 def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -1,8 +1,11 @@
-"""The port stands alone: it imports nothing of JAX or of tensoir_tpu, and
-runs a radiance, a relight and a fast-knob relight training step, and a
-3-iteration training run through an alpha-mask and shrink event that
-writes and reads back its checkpoint, on the CPU in a process where
-neither can be imported."""
+"""The port stands alone: it imports nothing of JAX, of tensoir_tpu, or of
+PIL, imageio and cv2 (the machine with the card has none of the last
+three), and runs a radiance, a relight and a fast-knob relight training
+step, a 3-iteration training run through an alpha-mask and shrink event
+that writes and reads back its checkpoint, and a tiny run of the training
+CLI on a scene written to disk (the loaders, evals during training, the
+final render_test, a render-only run from the checkpoint), on the CPU in a
+process where none of them can be imported."""
 import re
 import subprocess
 import sys
@@ -10,15 +13,17 @@ import textwrap
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|tensoir_tpu)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(from|import)\s+(jax|tensoir_tpu|PIL|imageio|cv2)(\.|\s|$)",
+    re.MULTILINE)
 
 STEP = textwrap.dedent("""
     import sys
-    for name in ("jax", "jaxlib", "tensoir_tpu"):
+    for name in ("jax", "jaxlib", "tensoir_tpu", "PIL", "imageio", "cv2"):
         sys.modules[name] = None          # any import of them now fails
     import math
     import torch
+    torch.set_num_threads(1)
     from tensoir_tpu_torch.models.field import FieldConfig, init_field_params
     from tensoir_tpu_torch.train.optim import make_optimizer
     from tensoir_tpu_torch.train.step import (LossWeights, StepStatic,
@@ -106,7 +111,40 @@ STEP = textwrap.dedent("""
         assert grid_size_of(params) == grid_size_of(res.params)
         assert torch.equal(scene_ck["aabb"], res.scene["aabb"])
         assert os.path.exists(os.path.join(tmp, "metrics.jsonl"))
-    assert not any(k == "jax" or k.startswith(("jax.", "tensoir_tpu."))
+    # the training CLI on a rotated-lights scene on disk: PNG and RGBE
+    # loaders, evals during training, the final render_test, render-only
+    from tensoir_tpu_torch import train_tensoir
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        write_shadow_scene(os.path.join(tmp, "scene"),
+                           os.path.join(tmp, "hdr"),
+                           views=(("train", 2, 16), ("test", 1, 12)),
+                           env_hw=(8, 16))
+        argv = ["--config", "configs/single_light/armadillo.txt",
+                "--datadir", os.path.join(tmp, "scene"),
+                "--hdrdir", os.path.join(tmp, "hdr"), "--basedir", tmp,
+                "--n_iters", "4", "--batch_size", "64",
+                "--n_lamb_sigma", "[4,4,4]", "--n_lamb_sh", "[4,4,4]",
+                "--data_dim_color", "6", "--featureC", "16",
+                "--N_voxel_init", "1728", "--N_voxel_final", "1728",
+                "--upsamp_list", "[100]", "--update_AlphaMask_list", "[1]",
+                "--nSamples", "32", "--numLgtSGs", "8", "--envmap_h", "2",
+                "--envmap_w", "4", "--second_nSample", "8",
+                "--relight_ray_cap", "8", "--secondary_tile", "64",
+                "--batch_size_test", "64", "--vis_every", "2",
+                "--N_vis", "1", "--test_number", "1"]
+        res = train_tensoir.main(argv, device="cpu")
+        run = os.path.join(tmp, "armadillo")
+        assert len(open(os.path.join(run, "imgs_vis",
+                                     "metrics_record.txt")).readlines()) == 2
+        assert os.path.exists(os.path.join(run, "imgs_test_all", "acc_map",
+                                           "000.png"))
+        again = train_tensoir.main(argv + [
+            "--render_only", "1", "--render_test", "1", "--ckpt",
+            os.path.join(run, "ckpt_final.npz")], device="cpu")
+        assert again == res and math.isfinite(res["imgs_test_all"]["psnr_nvs"])
+    assert not any(k.split(".")[0] in ("jax", "tensoir_tpu", "PIL", "imageio",
+                                       "cv2")
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
 """)

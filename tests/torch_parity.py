@@ -7,6 +7,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from tensoir_tpu.models import field as JF
@@ -84,3 +85,15 @@ def assert_tree_close(t_tree, j_tree, rtol, atol, path=""):
 
 def t(x, dtype=torch.float32):
     return torch.as_tensor(np.asarray(x)).to(dtype)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's port calls: at these sizes
+    torch's default threads (one per core) cost more in their hand-offs
+    than they save when the test workers share the cores (a tiny CLI run
+    took 154 s at 8 threads and 6.6 s at 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
