@@ -92,6 +92,29 @@ Phases, one JSON line each, in this order:
                evals, ckpt_final, the final render_test; then render-only
                from ckpt_final, whose metrics must equal the run's bit for
                bit. Its launches are the summary line's (MAIN_PATH)
+  relight_parity
+               one relight chunk of train_run's reloaded field at full
+               width, 64 rays x 512 light samples of a 1024x2048 probe (two
+               visibility tiles of 16384 pairs, 96 secondary samples), on
+               the card and on the CPU from the same uniforms: the exact
+               march and the fast route (the same bake): all eight outputs
+  relight      python -m tensoir_tpu_torch.scripts.relight_importance on
+               configs/relighting_test/armadillo.txt and train_run's
+               ckpt_final, in this process, over a relighting test set it
+               writes to a temporary directory (RELIGHT_VIEWS views of
+               RELIGHT_WH x RELIGHT_WH, five 1024x2048 probes): seconds
+               per view and of the G-buffer pass, chunks per view and
+               light, tiles and K1/K2 launches per chunk (K2 must stay 0),
+               peak memory, HDR decode seconds, PSNR/SSIM per light (a
+               sanity number), the artifact tree; relight_fast_vis, one
+               view again with --relight_fast_vis 1;
+               relight_chunk_breakdown, one profiled chunk (the name
+               relight_breakdown is relight_train's)
+  material_edit
+               python -m tensoir_tpu_torch.scripts.material_editing on one
+               view of that scene, edited (--roughness_scale 0.5
+               --albedo_tint 1,0.3,0.3) and not, on the same draws: the
+               images must differ
   kernels      each kernel against its plain PyTorch version on the card:
                at the shapes the training steps give it on random indices
                (K1 on bf16 rows at the baked grids', the app bake's and the
@@ -103,8 +126,9 @@ Phases, one JSON line each, in this order:
                ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
                bound_sector_ms (every row read as whole 32-byte sectors);
                at the busiest shape of each kernel in the training run,
-               the eval and the CLI run, and at the eval's density and
-               appearance lookups
+               the eval, the CLI run and the relight runs (the visibility
+               march's density lookup, the fast route's baked grid), and
+               at the eval's density and appearance lookups
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -118,6 +142,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -451,9 +476,10 @@ def slice_sizes():
 
 def phase_kernels(streams, busiest):
     """Random-index cases at the steps' shapes, at the busiest shapes of
-    the training run, the eval and the CLI run (from their launches by
-    shape, ``busiest``: path -> counts) and the probe's, the index streams
-    the steps recorded (``streams``) and the edge cases."""
+    the training run, the eval, the CLI run and the relight runs (from
+    their launches by shape, ``busiest``: path -> counts) and the probe's,
+    the index streams the steps recorded (``streams``) and the edge
+    cases."""
     cfg, reso, n_samples = slice_sizes()
     _, rreso, _ = relight_sizes(cfg)
     plane_rows = (reso[0] - 1) * (reso[1] - 1)
@@ -499,8 +525,13 @@ def phase_kernels(streams, busiest):
         "bench_alpha_mask": bf16_gather_case(127 ** 3, BATCH * 192, seed=14),
         "bench_app_bake": bf16_gather_case(63 ** 3, 14336 * 12, seed=15,
                                            C=8 * 27)}
-    for i, (path, counts) in enumerate(sorted(busiest.items())):
-        out[path] = busiest_cases(counts, seed=40 + 10 * i)
+    for i, path in enumerate(sorted(("train_run", "eval", "cli_run"))):
+        out[path] = busiest_cases(busiest[path], seed=40 + 10 * i)
+    # the relight runs' busiest shapes: the visibility march's density
+    # lookup (K1-f32) and alpha mask (K1-bf16), and the fast route's baked
+    # grid (K1-bf16)
+    for i, path in enumerate(("relight", "relight_fast")):
+        out[path] = busiest_cases(busiest[path], seed=80 + 10 * i)
     out["eval_lookups"] = eval_lookup_cases(busiest["eval"])
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
@@ -727,7 +758,7 @@ def phase_train(streams):
 
 # the record_function ranges of the step (train/step.py, render/*.py)
 RANGES = ("forward", "backward", "adam", "primary", "derived_normals",
-          "brdf_render", "bake", "secondary_march")
+          "brdf_render", "bake", "secondary_march", "visibility")
 
 
 def emit_breakdown(phase: str, run_step, step_ms: float) -> None:
@@ -1578,16 +1609,18 @@ def _segments(steps) -> list:
             for seg in out]
 
 
-def phase_train_run():
+def phase_train_run(keep_dir: str):
     """The port's reconstruction on the card at full width (see
     train_run_config) on the demo's data (shadow_dataset), from random
     weights made from the config's seed, writing its log and checkpoints to
     a temporary directory. Then ckpt_final.npz is loaded back and its
     field, and a deterministic render of 4,096 of the data's rays from it,
-    must equal the run's in-memory result bit for bit. Returns (launch
-    counts, launches by shape) of the run, counted from 0 just before it,
-    and the reloaded field as the eval phases take it (fcfg, params, scene,
+    must equal the run's in-memory result bit for bit; the file is copied
+    to ``keep_dir`` for the relight phases. Returns (launch counts,
+    launches by shape) of the run, counted from 0 just before it, and the
+    reloaded field as the eval phases take it (fcfg, params, scene,
     n_samples)."""
+    import shutil
     import tempfile
     import torch
     from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
@@ -1616,6 +1649,7 @@ def phase_train_run():
         (fcfg, params, scene, extra), load_s = _timed(
             load_checkpoint, os.path.join(log_dir, "ckpt_final.npz"),
             device="cuda")
+        shutil.copy(os.path.join(log_dir, "ckpt_final.npz"), keep_dir)
     segs = _segments(log["steps"])
     hist = result.metrics_history
     losses = [h["total_loss"] for h in hist]
@@ -1770,10 +1804,10 @@ def _eval_probe(log: list):
 
 
 def _chunk_stats(chunks) -> dict:
-    """Per kind of chunk: count, median and total ms, secondary tiles and
-    launches per chunk."""
+    """Per kind of chunk (eval ``main``, G-buffer ``gbuf``, ``relight``):
+    count, median and total ms, secondary tiles and launches per chunk."""
     out = {}
-    for kind in ("main", "gbuf"):
+    for kind in ("main", "gbuf", "relight"):
         mine = [c for c in chunks if c["kind"] == kind]
         if not mine:
             continue
@@ -2037,6 +2071,359 @@ def phase_cli_run():
     return launches, shapes
 
 
+# the relight phases: the relighting test config, the side of its test
+# views (cut from TensoIR-Synthetic's 800 x 800: at 80 x 80 a view took
+# 8.4 s on the card, 200 x 200 keeps the phase near two minutes), and the
+# rays of relight_parity (both devices relight them, the CPU at full width)
+RELIGHT_CONFIG = ROOT / "configs" / "relighting_test" / "armadillo.txt"
+RELIGHT_WH = 200
+RELIGHT_VIEWS = 2
+RELIGHT_PARITY_RAYS = 64
+RELIGHT_LIGHTS = ("bridge", "city", "fireplace", "forest", "night")
+
+
+def _relight_chunk_kw(cfg, n_samples: int) -> dict:
+    """The chunk options relight_importance passes from the config."""
+    return dict(n_samples=n_samples, n_light_samples=512,
+                second_n_sample=cfg.second_nSample,
+                vis_tile=cfg.secondary_tile)
+
+
+def phase_relight_parity(trained):
+    """One relight chunk of train_run's reloaded field at full width on the
+    card (K1) and on the CPU (the plain versions): RELIGHT_PARITY_RAYS rays
+    spread over a relight view x 512 light samples from a 1024 x 2048
+    probe (two visibility tiles of 16,384 pairs, 96 secondary samples),
+    the same uniforms, drawn once, given to both; the exact march (first
+    48 occupied samples) and the fast route (window 48/16 on the 128^3
+    bake, made on the card and given to both: bench_step_parity holds the
+    bakes themselves). Tolerance: each of the eight outputs within 1e-4
+    absolute on all but 1 % of the rays, as eval_parity."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.data.synthetic import (SyntheticShadowDataset,
+                                                  relight_probe)
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models.env_light import EnvironmentLight
+    from tensoir_tpu_torch.render import relight_pipeline as RP
+    fcfg, params, scene, n_samples = trained
+    cfg = C.load_config(str(RELIGHT_CONFIG))
+    ds = SyntheticShadowDataset(split="test", n_views=1,
+                                img_wh=(RELIGHT_WH, RELIGHT_WH))
+    rays = ds.all_rays[::ds.all_rays.shape[0] // RELIGHT_PARITY_RAYS]
+    n = RELIGHT_PARITY_RAYS
+    rays = rays[:n]
+    probe = relight_probe(1, (1024, 2048))
+    envs = {}
+    for dev in ("cuda", "cpu"):
+        envs[dev] = EnvironmentLight(None, device=dev)
+        envs[dev].add_light("city", probe)
+    u = torch.rand((n, 512), generator=torch.Generator().manual_seed(3))
+    bakes = RP.bake_visibility(fcfg, params, scene)
+    names = ("relight_without_bg", "relight_with_bg", "acc", "albedo",
+             "roughness", "normal", "depth", "rgb")
+    tol, frac = 1e-4, 0.01
+    report, fails, secs, launches = {}, [], {}, {}
+    for route in ("exact", "fast"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            p, sc = (params, scene) if dev == "cuda" else (_to(params, dev),
+                                                           _to(scene, dev))
+            vb = None
+            if route == "fast":
+                vb = tuple(b.to(dev) for b in bakes)
+            fn = RP.make_relight_chunk_fn(fcfg, envs[dev], "city",
+                                          fast_vis=route == "fast",
+                                          **_relight_chunk_kw(cfg, n_samples))
+            reset_launch_counts()
+            out, secs[f"{route}_{dev}"] = _timed(
+                fn, p, sc, torch.as_tensor(rays, device=dev), None,
+                torch.ones(3, device=dev), draws=u, vis_bakes=vb)
+            if dev == "cuda":
+                launches[route] = dict(LAUNCHES)
+            outs[dev] = [o.float().reshape(n, -1).cpu() for o in out]
+        rep = {}
+        for name, a, b in zip(names, outs["cuda"], outs["cpu"]):
+            d = (a - b).abs().amax(1)
+            over = int((d > tol).sum())
+            rep[name] = {"max_abs_err": float(d.max()), "rays_over_tol": over}
+            if over > frac * n:
+                fails.append(f"{route} {name}: {over} of {n} rays over {tol}")
+        report[route] = rep
+        surface = int((outs["cpu"][2] > 0.5).sum())
+        report[route]["surface_rays"] = surface
+        if not surface:
+            fails.append(f"{route}: no ray of the chunk reaches the surface")
+        if launches[route]["row_scatter_add"] != 0 or not (
+                launches[route]["row_gather"] > 0):
+            fails.append(f"{route}: launches {launches[route]}")
+    emit({"phase": "relight_parity", "ok": not fails, "fails": fails,
+          "rays": n, "light_samples": 512, "n_samples": n_samples,
+          "outputs": report, "seconds": secs, "launches": launches,
+          "tol": {"abs": tol, "rays_over_frac": frac}})
+    check(not fails, "relight_parity: " + "; ".join(fails))
+
+
+@contextlib.contextmanager
+def _relight_probe(log: list, timing: dict):
+    """Record each relight chunk call the block makes (its time by CUDA
+    events, K1/K2 launches, visibility tiles), the wall seconds of each
+    relight_benchmark and of the G-buffer pass of the albedo rescale
+    (``timing``). Wraps ``render.relight_pipeline.make_relight_chunk_fn``
+    and ``relight_benchmark`` and ``render.eval.compute_rescale_ratio``,
+    which the relight script looks up when it runs."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES
+    from tensoir_tpu_torch.render import eval as E
+    from tensoir_tpu_torch.render import relight_pipeline as RP
+    from tensoir_tpu_torch.render import secondary
+    make, bench, rescale = (RP.make_relight_chunk_fn, RP.relight_benchmark,
+                            E.compute_rescale_ratio)
+
+    def wrapped(*a, **kw):
+        fn = make(*a, **kw)
+
+        def run(*args, **kws):
+            before = dict(LAUNCHES)
+            tiles = secondary.MARCHED["tiles"]
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*args, **kws)
+            t1.record()
+            log.append({"kind": "relight", "events": (t0, t1),
+                        "tiles": secondary.MARCHED["tiles"] - tiles,
+                        "launches": {k: LAUNCHES[k] - before[k]
+                                     for k in LAUNCHES}})
+            return out
+        return run
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            out, s = _timed(fn, *a, **kw)
+            timing.setdefault(name, []).append(s)
+            return out
+        return run
+
+    RP.make_relight_chunk_fn = wrapped
+    RP.relight_benchmark = timed("benchmark_s", bench)
+    E.compute_rescale_ratio = timed("gbuf_pass_s", rescale)
+    try:
+        yield
+    finally:
+        RP.make_relight_chunk_fn, RP.relight_benchmark = make, bench
+        E.compute_rescale_ratio = rescale
+
+
+def _relight_run(argv, path: str, shapes: dict):
+    """relight_importance.main(argv) in this process with the launch counts
+    zeroed just before it: (results, launch counts, chunk records, timing,
+    wall seconds)."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.scripts import relight_importance
+    chunks, timing = [], {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _relight_probe(chunks, timing), _eval_probe(chunks), \
+            kernel_calls(path, shapes), contextlib.redirect_stdout(sys.stderr):
+        results = relight_importance.main(argv)
+    torch.cuda.synchronize()
+    return (results, dict(LAUNCHES), chunks, timing,
+            time.perf_counter() - t0)
+
+
+def phase_relight(work: str, ckpt: str, trained):
+    """python -m tensoir_tpu_torch.scripts.relight_importance on
+    configs/relighting_test/armadillo.txt, in this process, on train_run's
+    ckpt_final over a relighting test set written to ``work``
+    (write_relight_test_scene: RELIGHT_VIEWS test views of RELIGHT_WH^2,
+    five 1024 x 2048 probes): the loaders, the five lights' tables, the
+    G-buffer rescale pass, every view relit under each light (800 rays a
+    chunk, 512 light samples, 25 exact visibility tiles), the artifact
+    tree. Then one view again with ``--relight_fast_vis 1``. Seconds per
+    view and of the G-buffer pass, chunks per view and light, tiles and
+    K1/K2 launches per chunk (K2 must stay 0), peak memory, the HDR decode
+    seconds per probe, PSNR/SSIM per light (sanity numbers: the ground
+    truth is rendered under 16 x 32 copies of the probes); then
+    relight_chunk_breakdown, one profiled chunk. Returns (scene dir, hdr
+    dir), the launches of each run, their launches by shape and the chunk
+    statistics of the exact run."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.data.hdr import read_hdr
+    from tensoir_tpu_torch.data.synthetic import write_relight_test_scene
+    from tensoir_tpu_torch.models.env_light import EnvironmentLight
+    from tensoir_tpu_torch.render import relight_pipeline as RP
+    cfg = C.load_config(str(RELIGHT_CONFIG))
+    data, hdr, logs = (os.path.join(work, d) for d in ("relight_scene",
+                                                        "relight_hdr",
+                                                        "relight_log"))
+    t0 = time.perf_counter()
+    write_relight_test_scene(data, hdr, n_views=RELIGHT_VIEWS,
+                             size=RELIGHT_WH)
+    write_s = time.perf_counter() - t0
+    decode_s = {}
+    for name in RELIGHT_LIGHTS:
+        t0 = time.perf_counter()
+        read_hdr(os.path.join(hdr, f"{name}.hdr"))
+        decode_s[name] = time.perf_counter() - t0
+    argv = ["--config", str(RELIGHT_CONFIG), "--ckpt", ckpt, "--datadir",
+            data, "--hdrdir", hdr, "--basedir", logs, "--test_number",
+            str(RELIGHT_VIEWS)]
+    shapes = {}
+    torch.cuda.reset_peak_memory_stats()
+    results, launches, chunks, timing, wall_s = _relight_run(
+        argv, "relight", shapes)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out_dir = os.path.join(logs, "relight_armadillo")
+    files = sorted(os.path.relpath(os.path.join(r, f), out_dir)
+                   for r, _, fs in os.walk(out_dir) for f in fs)
+    stats = _chunk_stats(chunks)
+    rel = stats.get("relight", {})
+    n_rays = RELIGHT_WH * RELIGHT_WH
+    per_light = -(-n_rays // cfg.batch_size)
+    want_tiles = -(-cfg.batch_size * 512 // cfg.secondary_tile)
+    bench_s = timing.get("benchmark_s", [float("nan")])[0]
+    res = {"phase": "relight", "views": RELIGHT_VIEWS,
+           "view": [RELIGHT_WH, RELIGHT_WH], "lights": list(RELIGHT_LIGHTS),
+           "scene_write_s": write_s, "hdr_decode_s": decode_s,
+           "wall_s": wall_s, "benchmark_s": bench_s,
+           "seconds_per_view": bench_s / RELIGHT_VIEWS,
+           "gbuf_pass_s": timing.get("gbuf_pass_s", [None])[0],
+           "chunks_per_view_per_light": per_light,
+           "chunks": stats, "launches": launches,
+           "launches_by_shape": by_shape(shapes, max(rel.get("chunks", 1),
+                                                     1)),
+           "projected_800_view_s": (800 * 800 // cfg.batch_size
+                                    * len(RELIGHT_LIGHTS)
+                                    * rel.get("median_ms", float("nan"))
+                                    / 1e3),
+           "peak_mem_gb": peak, "metrics": results, "files": len(files)}
+    fails = []
+    if rel.get("chunks") != per_light * len(RELIGHT_LIGHTS) * RELIGHT_VIEWS:
+        fails.append(f"{rel.get('chunks')} relight chunks, not "
+                     f"{per_light * len(RELIGHT_LIGHTS) * RELIGHT_VIEWS}")
+    if rel.get("tiles_per_chunk") != [want_tiles]:
+        fails.append(f"tiles per chunk {rel.get('tiles_per_chunk')}, not "
+                     f"{want_tiles}")
+    if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
+        fails.append(f"K1 not launched in the relight run: {launches}")
+    if launches["row_scatter_add"] != 0:
+        fails.append(f"K2 launched {launches['row_scatter_add']} times in "
+                     f"the relight run")
+    if list(results) != list(RELIGHT_LIGHTS) or not all(
+            math.isfinite(r["psnr"]) and math.isfinite(r["ssim"])
+            for r in results.values()):
+        fails.append(f"metrics {results}")
+    want = {"relight_psnr.txt"}
+    for v in range(RELIGHT_VIEWS):
+        view = f"test_{v:03d}"
+        want |= {f"{view}/{m}.png" for m in (
+            "rgb", "acc", "depth", "albedo", "albedo_gamma_corrected",
+            "gt_albedo_gamma_corrected", "roughness", "normal")}
+        want.add(f"{view}/relighting_without_bg/relight_psnr.txt")
+        for light in RELIGHT_LIGHTS:
+            want |= {f"{view}/relighting_{bg}/{light}.png"
+                     for bg in ("with_bg", "without_bg")}
+            want |= {f"video_{bg}/{light}_video/{v:03d}.png"
+                     for bg in ("with_bg", "without_bg")}
+        want |= {f"video/{name}/{v:03d}.png" for name in (
+            "rgb_video", "render_normal_video", "aligned_albedo_video",
+            "roughness_video")}
+    missing = sorted(want - set(files))
+    if missing:
+        fails.append(f"artifacts missing: {missing}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "relight: " + "; ".join(fails))
+
+    # the fast visibility route on one view
+    fast_shapes = {}
+    results_f, launches_f, chunks_f, timing_f, wall_f = _relight_run(
+        argv + ["--relight_fast_vis", "1", "--test_number", "1",
+                "--basedir", os.path.join(work, "relight_log_fast")],
+        "relight_fast", fast_shapes)
+    stats_f = _chunk_stats(chunks_f)
+    bench_f = timing_f.get("benchmark_s", [float("nan")])[0]
+    res_f = {"phase": "relight_fast_vis", "views": 1, "wall_s": wall_f,
+             "seconds_per_view": bench_f,
+             "gbuf_pass_s": timing_f.get("gbuf_pass_s", [None])[0],
+             "chunks": stats_f, "launches": launches_f,
+             "launches_by_shape": by_shape(
+                 fast_shapes, max(stats_f.get("relight", {}).get("chunks", 1),
+                                  1)),
+             "metrics": results_f,
+             "psnr_minus_exact": {k: results_f[k]["psnr"] - v["psnr"]
+                                  for k, v in results.items()
+                                  if k in results_f}}
+    fails = []
+    if launches_f["row_scatter_add"] != 0 or not (
+            launches_f["row_gather_bf16"] > 0):
+        fails.append(f"launches {launches_f}")
+    if not all(math.isfinite(r["psnr"]) for r in results_f.values()):
+        fails.append(f"metrics {results_f}")
+    res_f["ok"] = not fails
+    emit(res_f)
+    check(not fails, "relight_fast_vis: " + "; ".join(fails))
+
+    # one profiled chunk of the exact route: 800 rays from the first view
+    fcfg, params, scene, n_samples = trained
+    env = EnvironmentLight(hdr, device="cuda")
+    fn = RP.make_relight_chunk_fn(fcfg, env, "city",
+                                  **_relight_chunk_kw(cfg, n_samples))
+    from tensoir_tpu_torch.data import get_dataset
+    item = get_dataset("tensoIR_relighting_test")(
+        data, hdr, split="test", light_names=RELIGHT_LIGHTS, sub=1)[0]
+    mid = max(0, n_rays // 2 - cfg.batch_size // 2)
+    rays = torch.as_tensor(item["rays"][mid:mid + cfg.batch_size],
+                           device="cuda")
+    key = torch.Generator(device="cuda").manual_seed(0)
+    ones = torch.ones(3, device="cuda")
+    emit_breakdown("relight_chunk_breakdown",
+                   lambda: fn(params, scene, rays, key, ones),
+                   rel.get("median_ms", float("nan")))
+    return ((data, hdr), {"relight": launches, "relight_fast": launches_f},
+            {**shapes, **fast_shapes}, stats)
+
+
+def phase_material_edit(work: str, ckpt: str, scene_dirs) -> None:
+    """python -m tensoir_tpu_torch.scripts.material_editing on one view of
+    the relight phase's scene under 'city': with ``--roughness_scale 0.5
+    --albedo_tint 1,0.3,0.3``, and unedited; both draw from the same seed,
+    and the edited image must differ. K2 must not launch."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.scripts import material_editing
+    data, hdr = scene_dirs
+    argv = ["--config", str(RELIGHT_CONFIG), "--ckpt", ckpt, "--datadir",
+            data, "--hdrdir", hdr, "--out", os.path.join(work, "edit")]
+    secs, images = {}, {}
+    reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        for tag, extra in (("edited", ["--roughness_scale", "0.5",
+                                       "--albedo_tint", "1,0.3,0.3"]),
+                           ("unedited", [])):
+            images[tag], secs[tag] = _timed(material_editing.main,
+                                            argv + extra)
+    launches = dict(LAUNCHES)
+    a, b = images["edited"][0], images["unedited"][0]
+    diff = float(np.abs(a - b).max())
+    fails = []
+    if not (np.isfinite(a).all() and a.shape == (RELIGHT_WH, RELIGHT_WH, 3)):
+        fails.append(f"edited image {a.shape}")
+    if diff <= 0.01:
+        fails.append(f"the edit changed the image by only {diff}")
+    if launches["row_scatter_add"] != 0:
+        fails.append(f"K2 launched: {launches}")
+    emit({"phase": "material_edit", "ok": not fails, "fails": fails,
+          "seconds": secs, "max_abs_diff": diff,
+          "mean_abs_diff": float(np.abs(a - b).mean()),
+          "launches": launches})
+    check(not fails, "material_edit: " + "; ".join(fails))
+
+
 def eval_lookup_cases(shapes) -> dict:
     """Both kernels at the eval's primary VM lookups, on random indices:
     the density at the culled march (C 64, N = chunk x march cap 256) and
@@ -2097,45 +2484,60 @@ PATH_CASES = {
                     "row_gather_bf16": ("bf16", "bench_app_bake"),
                     "row_scatter_add": ("bench_density", "row_scatter_add")},
     # the busiest shape of each kernel in the training run, the eval (K2
-    # does not launch there: its entry carries the training run's case and
-    # 0 launches) and the CLI run (busiest_cases)
+    # does not launch there: None, its entry holds its launches and no
+    # times) and the CLI run (busiest_cases)
     "train_run": {name: ("train_run", name) for name in KERNEL_SOURCES},
     "eval": {"row_gather": ("eval", "row_gather"),
              "row_gather_bf16": ("eval", "row_gather_bf16"),
-             "row_scatter_add": ("train_run", "row_scatter_add")},
+             "row_scatter_add": None},
     "cli_run": {name: ("cli_run", name) for name in KERNEL_SOURCES},
+    # the relight script, exact (the default) and fast visibility: K2 does
+    # not launch there either
+    "relight": {"row_gather": ("relight", "row_gather"),
+                "row_gather_bf16": ("relight", "row_gather_bf16"),
+                "row_scatter_add": None},
+    "relight_fast": {"row_gather": ("relight_fast", "row_gather"),
+                     "row_gather_bf16": ("relight_fast", "row_gather_bf16"),
+                     "row_scatter_add": None},
 }
-# the path whose numbers lead each kernel's summary entry: the newest
-# slice's, the CLI run (training, the evals, render-only)
+# the path whose numbers lead each kernel's summary entry: the CLI run
+# (training, the evals, render-only), the one path that runs all three
+# kernels (K2 does not launch on the relight path)
 MAIN_PATH = "cli_run"
-_OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run")
+_OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run", "relight",
+                     "relight_fast")
 
 
-def kernel_summary(cases, launches, shapes, eval_chunks) -> list:
+def kernel_summary(cases, launches, shapes, chunks) -> list:
     """One entry per kernel: the main path's launches beside its own shape
     and times, and each path's under ``by_path`` with the launches at that
-    shape (``launches_at_shape``); the eval's also with its launches per
-    chunk of the main pass and of the G-buffer pass (``eval_chunks``)."""
+    shape (``launches_at_shape``); the eval's and the relight run's also
+    with their launches per chunk of each kind (``chunks``: path -> chunk
+    statistics)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     summary = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         by_path = {}
         for path, picks in PATH_CASES.items():
-            group, sub = picks[name]
-            c = cases[group][sub]
-            # a bf16 or train_run case holds its own shape, an f32 one its
-            # group's
-            shape = c if group in _OWN_SHAPE_GROUPS else cases[group]
-            at = (path, name, shape["R"], shape["C"], shape["N"])
-            by_path[path] = {"launches": launches[path][name],
-                             "launches_at_shape": shapes.get(at, 0),
-                             "shape": {k: shape[k] for k in ("R", "C", "N")},
-                             **{k: c[k] for k in keys}}
-            if path == "eval":
+            if picks[name] is None:     # not on this path: no shape, no times
+                by_path[path] = {"launches": launches[path][name]}
+            else:
+                group, sub = picks[name]
+                c = cases[group][sub]
+                # a bf16 or train_run case holds its own shape, an f32 one
+                # its group's
+                shape = c if group in _OWN_SHAPE_GROUPS else cases[group]
+                at = (path, name, shape["R"], shape["C"], shape["N"])
+                by_path[path] = {
+                    "launches": launches[path][name],
+                    "launches_at_shape": shapes.get(at, 0),
+                    "shape": {k: shape[k] for k in ("R", "C", "N")},
+                    **{k: c[k] for k in keys}}
+            if path in chunks:
                 by_path[path]["launches_per_chunk"] = {
                     kind: st["launches_per_chunk"][name]
-                    for kind, st in eval_chunks.items()}
+                    for kind, st in chunks[path].items()}
         main_path = by_path[MAIN_PATH]
         summary.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, **main_path,
@@ -2167,6 +2569,13 @@ def main(argv) -> int:
     resolve_device("cuda")
     t_start = time.perf_counter()
     streams, launches, shapes = {}, {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        return _run(steps_only, work, t_start, streams, launches, shapes)
+
+
+def _run(steps_only: bool, work: str, t_start: float, streams: dict,
+         launches: dict, shapes: dict) -> int:
+    import torch
     try:
         phase_build()
         if not steps_only:
@@ -2182,21 +2591,31 @@ def main(argv) -> int:
             return 0
         # after the timed steps, so that its CPU half runs after theirs
         phase_lifecycle_parity()
-        launches["train_run"], counts, trained = phase_train_run()
+        launches["train_run"], counts, trained = phase_train_run(work)
+        ckpt = os.path.join(work, "ckpt_final.npz")
         shapes.update(counts)
         phase_eval_parity(trained)
         launches["eval"], counts, eval_chunks = phase_eval(trained)
         shapes.update(counts)
-        del trained
         launches["cli_run"], counts = phase_cli_run()
         shapes.update(counts)
+        phase_relight_parity(trained)
+        scene_dirs, counts_by_path, counts, relight_chunks = phase_relight(
+            work, ckpt, trained)
+        launches.update(counts_by_path)
+        shapes.update(counts)
+        del trained
+        phase_material_edit(work, ckpt, scene_dirs)
         cases = phase_kernels(streams, {
             path: {k: n for k, n in shapes.items() if k[0] == path}
-            for path in ("train_run", "eval", "cli_run")})
+            for path in ("train_run", "eval", "cli_run", "relight",
+                         "relight_fast")})
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1
-    emit({"kernels": kernel_summary(cases, launches, shapes, eval_chunks)})
+    emit({"kernels": kernel_summary(cases, launches, shapes,
+                                    {"eval": eval_chunks,
+                                     "relight": relight_chunks})})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

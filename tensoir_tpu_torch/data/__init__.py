@@ -1,13 +1,5 @@
-"""Dataset registry (mirrors tensoir_tpu.data). The relighting and
-material-editing test sets raise ``NotImplementedError`` naming the ROADMAP
-item that ports them."""
+"""Dataset registry (mirrors tensoir_tpu.data)."""
 from __future__ import annotations
-
-# the test sets of relighting need relighting (ROADMAP queue 1 item 6b)
-_NOT_PORTED = {
-    "tensoIR_relighting_test": "item 6b (relighting)",
-    "tensoIR_material_editing_test": "item 6b (relighting)",
-}
 
 
 def get_dataset(name: str):
@@ -25,16 +17,21 @@ def get_dataset(name: str):
         from tensoir_tpu_torch.data.tensoir import (
             TensoIRGeneralMultiLightsDataset)
         return TensoIRGeneralMultiLightsDataset
+    if name == "tensoIR_relighting_test":
+        from tensoir_tpu_torch.data.relight_test import (
+            TensoIRRelightingTestDataset)
+        return TensoIRRelightingTestDataset
+    if name == "tensoIR_material_editing_test":
+        from tensoir_tpu_torch.data.relight_test import (
+            TensoIRMaterialEditingTestDataset)
+        return TensoIRMaterialEditingTestDataset
     if name == "synthetic_sphere":
         from tensoir_tpu_torch.data.synthetic import SyntheticSphereDataset
         return SyntheticSphereDataset
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r}: its loader is not ported yet (ROADMAP "
-            f"queue 1 {_NOT_PORTED[name]})")
     raise KeyError(f"unknown dataset {name}")
 
 
 dataset_dict = {name: name for name in (
     "blender", "tensoIR_simple", "tensoIR_unknown_rotated_lights",
-    "tensoIR_unknown_general_multi_lights", *_NOT_PORTED, "synthetic_sphere")}
+    "tensoIR_unknown_general_multi_lights", "tensoIR_relighting_test",
+    "tensoIR_material_editing_test", "synthetic_sphere")}

@@ -1,5 +1,6 @@
 """Procedural synthetic scene for tests and benchmarks (the port's own copy
-of tensoir_tpu.data.synthetic; numpy only).
+of tensoir_tpu.data.synthetic; numpy, and torch for the lat-long lookup
+and the sRGB curve of the relighting ground truth).
 
 No TensoIR-Synthetic data ships with this repo, so tests/benchmarks use an
 analytic scene: a lambertian sphere lit by a directional light on a white
@@ -8,7 +9,8 @@ intersection, so the dataset satisfies the same data contract as the real
 loaders (SURVEY.md §2.2: flat `all_rays [N,6]`, `all_rgbs [N,3]`,
 `all_light_idx [N,1]`, `scene_bbox`, `near_far`, `white_bg`, `img_wh`).
 ``write_shadow_scene`` writes the shadow scene to disk in the
-TensoIR-Synthetic layout, for the file loaders and the CLI.
+TensoIR-Synthetic layout, for the file loaders and the CLI;
+``write_relight_test_scene`` writes it as a relighting test set.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from tensoir_tpu_torch.data.hdr import write_hdr
+from tensoir_tpu_torch.data.relight_test import RELIGHT_LIGHTS
 from tensoir_tpu_torch.data.ray_utils import (
     get_ray_directions_blender,
     get_rays,
@@ -237,11 +241,64 @@ class SyntheticShadowDataset(SyntheticSphereDataset):
     def render_env_gt(self, rays: np.ndarray, env_map: np.ndarray,
                       background: str = "env", srgb: bool = True
                       ) -> np.ndarray:
-        """Exact relit image under a lat-long environment map, the
-        relighting benchmark's ground truth. Not ported yet."""
-        raise NotImplementedError(
-            "render_env_gt needs the lat-long environment lookup of "
-            "relighting, which is not ported yet (ROADMAP queue 1 item 6b)")
+        """The exact relit image under a lat-long environment map [H, W, 3],
+        the relighting benchmark's ground truth, float32 [N, 3].
+
+        The scene is lambertian, so the rendering equation is albedo / pi
+        times the sum over texels of L cos+ visibility d-omega, in closed
+        form per pixel (visibility: a ray/sphere test from the surface).
+        Linear radiance clipped to [0, 1]; behind the object the probe
+        (``background`` "env", looked up as the relighting pipeline does)
+        or white; ``srgb`` applies the sRGB curve to both. The integral is
+        a [points x texels] product: keep the probe small."""
+        from tensoir_tpu_torch.models.lighting import (envmap_dirs,
+                                                       latlong_lookup)
+        from tensoir_tpu_torch.ops.color import linear2srgb
+
+        H, W, _ = env_map.shape
+        _, dirs = envmap_dirs(H, W)
+        dirs = dirs.astype(np.float64)          # [T, 3]
+        # solid angle per texel: (2 pi / W) (pi / H) sin(colatitude)
+        lat_step = np.pi / H
+        lng_step = 2 * np.pi / W
+        phi = np.linspace(np.pi / 2 - 0.5 * lat_step,
+                          -np.pi / 2 + 0.5 * lat_step, H)
+        domega = (np.cos(phi)[:, None] * lat_step * lng_step
+                  ) @ np.ones((1, W))
+        domega = domega.reshape(-1)             # [T]
+
+        rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+        rgb, normal, depth, hit = self._render_gt(rays_o, rays_d)
+        pts = rays_o + depth[:, None] * rays_d
+        albedo = np.where(
+            (np.linalg.norm((pts - self.SPHERE_C), axis=-1)
+             < self.SPHERE_R + 1e-3)[:, None],
+            self.albedo[None], self.PLANE_ALBEDO[None])
+
+        if background == "env":
+            bg = latlong_lookup(torch.as_tensor(env_map),
+                                torch.as_tensor(rays_d), align_corners=True,
+                                padding="zeros").numpy()
+            out = np.clip(bg, 0.0, 1.0).astype(rgb.dtype)
+        else:
+            out = np.ones_like(rgb)
+        idx = np.where(hit > 0)[0]
+        for start in range(0, idx.size, 4096):   # chunks of the [P, T] product
+            ii = idx[start:start + 4096]
+            p = pts[ii]
+            n = normal[ii]
+            cos = np.clip(n @ dirs.T, 0.0, None)            # [P, T]
+            occ, _ = _sphere_hit(
+                np.repeat(p + n * 1e-4, dirs.shape[0], 0),
+                np.tile(dirs, (p.shape[0], 1)),
+                self.SPHERE_C, self.SPHERE_R)
+            vis = 1.0 - occ.reshape(p.shape[0], dirs.shape[0])
+            L = env_map.reshape(-1, 3)                       # [T, 3]
+            integ = (cos * vis * domega[None]) @ L           # [P, 3]
+            out[ii] = np.clip(albedo[ii] / np.pi * integ, 0.0, 1.0)
+        if srgb:
+            out = linear2srgb(torch.as_tensor(out)).numpy()
+        return out.astype(np.float32)
 
     def albedo_gt(self, rays_o, rays_d) -> np.ndarray:
         """Per-ray GT albedo of the first surface hit (sphere or plane;
@@ -267,6 +324,38 @@ class SyntheticShadowDataset(SyntheticSphereDataset):
         return item
 
 
+# the PNG row filter types, taken by the rows in turn
+_FILTERS = (0, 1, 2, 3, 4)
+
+
+def _rgba8(x, mask, size: int) -> np.ndarray:
+    """x [N, 3] in [0, 1] as an 8-bit [size, size, 4] image, alpha 255
+    where ``mask``."""
+    alpha = ((mask > 0)[:, None] * 255).astype(np.uint8)
+    x8 = np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
+    return np.concatenate([x8, alpha], 1).reshape(size, size, 4)
+
+
+def _write_view(root, split: str, k: int, count: int, size: int):
+    """View ``k`` of ``count`` of a split: its folder with metadata.json (a
+    0.69 rad field of view, on a ring around the scene). Returns (folder,
+    the rays the loaders compute from it)."""
+    ang = 2 * np.pi * k / count + (0.0 if split == "train" else 0.4)
+    z = 1.2 + 0.8 * np.sin(ang * 1.7)
+    eye = np.array([np.cos(ang), np.sin(ang), z / 4.0]) * 4.0
+    c2w = np.concatenate([look_at(eye / np.linalg.norm(eye) * 4.0),
+                          [[0, 0, 0, 1]]], 0)
+    meta = {"imw": size, "imh": size, "cam_angle_x": 0.69,
+            "cam_transform_mat": ",".join(
+                repr(float(x)) for x in c2w.reshape(-1))}
+    rays, _, _ = _view_rays(meta, 1.0)
+    view = os.path.join(root, f"{split}_{k:03d}")
+    os.makedirs(view, exist_ok=True)
+    with open(os.path.join(view, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    return view, rays
+
+
 def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
                                                 ("test", 1, 200)),
                        env_hw=(1024, 2048)) -> None:
@@ -279,39 +368,19 @@ def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
     rays the loader computes from the view's metadata (alpha 255 on the
     sphere and the disc, 0 elsewhere); its PNG rows take the five filter
     types in turn. The probe is a smooth sky with a sun, RGBE."""
-    filters = (0, 1, 2, 3, 4)
     gt = SyntheticShadowDataset(split="train", n_views=1, img_wh=(1, 1))
     for split, count, size in views:
         for k in range(count):
-            ang = 2 * np.pi * k / count + (0.0 if split == "train" else 0.4)
-            z = 1.2 + 0.8 * np.sin(ang * 1.7)
-            eye = np.array([np.cos(ang), np.sin(ang), z / 4.0]) * 4.0
-            c2w = np.concatenate([look_at(eye / np.linalg.norm(eye) * 4.0),
-                                  [[0, 0, 0, 1]]], 0)
-            meta = {"imw": size, "imh": size, "cam_angle_x": 0.69,
-                    "cam_transform_mat": ",".join(
-                        repr(float(x)) for x in c2w.reshape(-1))}
-            rays, _, _ = _view_rays(meta, 1.0)
+            view, rays = _write_view(root, split, k, count, size)
             o, d = rays[:, :3], rays[:, 3:6]
             rgb, normal, _, mask = gt._render_gt(o, d)
-            alpha = (mask > 0)[:, None]
-            albedo = np.where(alpha, gt.albedo_gt(o, d), 1.0)
-
-            def rgba(x):
-                x8 = np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
-                return np.concatenate(
-                    [x8, (alpha * 255).astype(np.uint8)], 1).reshape(
-                        size, size, 4)
-
-            view = os.path.join(root, f"{split}_{k:03d}")
-            os.makedirs(view, exist_ok=True)
-            with open(os.path.join(view, "metadata.json"), "w") as f:
-                json.dump(meta, f)
+            albedo = np.where((mask > 0)[:, None], gt.albedo_gt(o, d), 1.0)
             write_png(os.path.join(view, "rgba_sunset_000.png"),
-                      rgba(rgb), filters)
-            write_png(os.path.join(view, "albedo.png"), rgba(albedo), filters)
+                      _rgba8(rgb, mask, size), _FILTERS)
+            write_png(os.path.join(view, "albedo.png"),
+                      _rgba8(albedo, mask, size), _FILTERS)
             write_png(os.path.join(view, "normal.png"),
-                      rgba(normal * 0.5 + 0.5), filters)
+                      _rgba8(normal * 0.5 + 0.5, mask, size), _FILTERS)
     h, w = env_hw
     v = np.linspace(0.0, 1.0, h)[:, None, None]
     u = np.linspace(0.0, 1.0, w)[None, :, None]
@@ -320,3 +389,67 @@ def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
     os.makedirs(hdr_dir, exist_ok=True)
     write_hdr(os.path.join(hdr_dir, "sunset.hdr"),
               (sky + sun * np.array([1.0, 0.9, 0.7])).astype(np.float32))
+
+
+def relight_probe(i: int, env_hw) -> np.ndarray:
+    """Probe ``i`` of a set of distinct synthetic environment maps, float32
+    [H, W, 3]: a sky graded from horizon to zenith and a sun, both placed
+    and coloured by ``i``."""
+    from tensoir_tpu_torch.models.lighting import envmap_dirs
+    h, w = env_hw
+    _, dirs = envmap_dirs(h, w)
+    dirs = dirs.reshape(h, w, 3).astype(np.float64)
+    a = 2.0 * np.pi * i / 5.0 + 0.3
+    sun = np.array([np.cos(a), np.sin(a), 0.35 + 0.1 * i])
+    sun /= np.linalg.norm(sun)
+    tint = np.array([[1.0, 0.85, 0.6], [0.7, 0.8, 1.0], [1.0, 0.6, 0.35],
+                     [0.6, 1.0, 0.6], [0.5, 0.55, 0.9]])[i % 5]
+    sky = (0.15 + 0.5 * np.clip(dirs[..., 2:3], 0.0, None)) * tint
+    lobe = np.exp(40.0 * ((dirs * sun).sum(-1, keepdims=True) - 1.0))
+    return (sky + (6.0 + 2.0 * i) * lobe * tint).astype(np.float32)
+
+
+def area_average(img: np.ndarray, out_hw) -> np.ndarray:
+    """[H, W, C] -> [h, w, C], each texel the mean of its block (H and W
+    multiples of h and w)."""
+    H, W, C = img.shape
+    h, w = out_hw
+    return img.reshape(h, H // h, w, W // w, C).mean((1, 3)).astype(
+        np.float32)
+
+
+def write_relight_test_scene(root, hdr_dir, *, lights=RELIGHT_LIGHTS,
+                             n_views: int = 2, size: int = 800,
+                             env_hw=(1024, 2048),
+                             gt_env_hw=(16, 32)) -> None:
+    """The shadow scene as a relighting test set on disk, in the layout of
+    TensoIR-Synthetic's: ``<root>/test_NNN/`` with metadata.json,
+    ``rgba_{light}.png`` for each light, albedo.png and normal.png, and
+    ``<hdr_dir>/{light}.hdr`` probes of ``env_hw`` (``relight_probe``).
+
+    The ground truth is ``render_env_gt`` (white background, alpha 255 on
+    the sphere and the disc), whose integral is a [points x texels]
+    product: it is rendered under each probe as written and read back,
+    area-averaged down to ``gt_env_hw``. A relit image's PSNR against it is
+    therefore a sanity number, not a measure of quality."""
+    from tensoir_tpu_torch.data.hdr import read_hdr
+    gt = SyntheticShadowDataset(split="test", n_views=1, img_wh=(1, 1))
+    os.makedirs(hdr_dir, exist_ok=True)
+    small = {}
+    for i, name in enumerate(lights):
+        path = os.path.join(hdr_dir, f"{name}.hdr")
+        write_hdr(path, relight_probe(i, env_hw))
+        small[name] = area_average(read_hdr(path), gt_env_hw)
+    for k in range(n_views):
+        view, rays = _write_view(root, "test", k, n_views, size)
+        o, d = rays[:, :3], rays[:, 3:6]
+        _, normal, _, mask = gt._render_gt(o, d)
+        for name in lights:
+            rgb = gt.render_env_gt(rays, small[name], background="white")
+            write_png(os.path.join(view, f"rgba_{name}.png"),
+                      _rgba8(rgb, mask, size), _FILTERS)
+        albedo = np.where((mask > 0)[:, None], gt.albedo_gt(o, d), 1.0)
+        write_png(os.path.join(view, "albedo.png"),
+                  _rgba8(albedo, mask, size), _FILTERS)
+        write_png(os.path.join(view, "normal.png"),
+                  _rgba8(normal * 0.5 + 0.5, mask, size), _FILTERS)

@@ -79,13 +79,15 @@ def grid_size_of(params: Dict) -> Tuple[int, int, int]:
 
 
 def init_field_params(gen: torch.Generator, cfg: FieldConfig, grid_size,
-                      aabb, device: DeviceLike = None):
+                      aabb, device: DeviceLike = None, gt_envmap=None):
     """(params, scene) dicts on ``device``, drawn from ``gen`` on the CPU.
 
     Same keys, shapes and distributions as the JAX package's
     ``init_field_params`` (VM factors 0.1 * randn, light_line randn, basis
     U(+-1/sqrt(sum Ra)), MLPs, SG lights); the numbers differ, because the
-    generators do. The scene starts with the permissive 2^3 alpha mask.
+    generators do. The scene starts with the permissive 2^3 alpha mask,
+    and holds ``gt_envmap`` [H, W, 3], the dataset's probe, when given (the
+    light of ``light_kind='gt'``).
     """
     _require_vm(cfg)
     dev = resolve_device(device)
@@ -135,6 +137,9 @@ def init_field_params(gen: torch.Generator, cfg: FieldConfig, grid_size,
         "alpha_aabb": aabb_t.clone(),
         "has_alpha_mask": torch.tensor(0.0),
     }
+    if gt_envmap is not None:
+        scene["gt_envmap"] = torch.as_tensor(np.asarray(gt_envmap,
+                                                        np.float32))
     return params, _tree_to(scene, dev)
 
 

@@ -1,9 +1,9 @@
-"""Environment light as spherical Gaussians (port of
-tensoir_tpu.models.lighting: the lat-long direction sets, SG init and
-evaluation, and the per-light query for ``light_kind='sg'``).
+"""The learned environment light (port of tensoir_tpu.models.lighting):
+the lat-long direction sets, spherical Gaussians (init and evaluation),
+the lat-long map lookup, and the per-light query of every light kind
+(``sg``, ``pixel``: a learned lat-long map, ``gt``: the dataset's probe).
 
-Light kinds ``pixel`` and ``gt`` and the importance / equal-area samplers
-are not ported yet and raise ``NotImplementedError``.
+The importance and equal-area samplers are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tensoir_tpu_torch.ops.interp import bilerp_plane, clip, recip
 from tensoir_tpu_torch.ops.rays import linspace
 
 
@@ -120,19 +121,45 @@ def render_envmap_sg(lgt_sgs: torch.Tensor, viewdirs: torch.Tensor):
     return torch.matmul(torch.exp(lam[:, 0] * (dots - 1.0)), mu)
 
 
-def get_light_rgbs(light_params, cfg, dirs: torch.Tensor) -> torch.Tensor:
+def latlong_lookup(env_hw3: torch.Tensor, dirs: torch.Tensor,
+                   align_corners: bool, padding: str = "zeros"):
+    """An [H, W, 3] lat-long map at unit directions [..., 3] -> [..., 3]:
+    phi = arccos(z) - 1e-6, theta = atan2(y, x), looked up at
+    y = phi / pi * 2 - 1 and x = -theta / pi. The divisions by pi are
+    products with its f32 reciprocal, as XLA computes them under ``jit``."""
+    phi = torch.arccos(clip(dirs[..., 2], -1.0, 1.0)) - 1e-6
+    theta = torch.atan2(dirs[..., 1], dirs[..., 0])
+    qy = (phi * recip(np.pi)) * 2.0 - 1.0
+    qx = -theta * recip(np.pi)
+    return bilerp_plane(env_hw3, qx, qy, align_corners=align_corners,
+                        padding=padding)
+
+
+def get_light_rgbs(light_params, cfg, dirs: torch.Tensor,
+                   gt_envmap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Radiance of every light at directions [S, 3] -> [light_num, S, 3].
 
     One SG set per light (``per_light_sg``), queried at the directions as
-    they are; or one set shared by all lights, queried at the directions
-    rotated by each light's z rotation."""
-    if cfg.light_kind != "sg":
-        raise NotImplementedError(
-            f"light_kind={cfg.light_kind!r}: the port has only 'sg' so far")
-    sgs = light_params["lgt_sgs"]
+    they are; or one light shared by all, queried at the directions
+    rotated by each light's z rotation: an SG set (``sg``), the learned
+    lat-long map softplus(5 p) / 5 (``pixel``), or the dataset's probe
+    ``gt_envmap`` [H, W, 3] (``gt``)."""
     if cfg.per_light_sg:
-        return torch.stack([render_envmap_sg(s, dirs) for s in sgs])
+        return torch.stack([render_envmap_sg(s, dirs)
+                            for s in light_params["lgt_sgs"]])
     rots = torch.as_tensor(rotation_matrices(cfg.light_rotations),
                            device=dirs.device)
     remapped = torch.einsum("sd,lde->lse", dirs, rots)          # [L, S, 3]
-    return render_envmap_sg(sgs, remapped)
+    if cfg.light_kind == "sg":
+        return render_envmap_sg(light_params["lgt_sgs"], remapped)
+    if cfg.light_kind == "pixel":
+        env = torch.nn.functional.softplus(
+            5.0 * light_params["light_pixel"]) * recip(5.0)
+        env = env.reshape(cfg.envmap_h, cfg.envmap_w, 3)
+        return latlong_lookup(env, remapped, align_corners=False)
+    if cfg.light_kind == "gt":
+        if gt_envmap is None:
+            raise ValueError("light_kind='gt' needs the dataset's probe "
+                             "(scene['gt_envmap'])")
+        return latlong_lookup(gt_envmap, remapped, align_corners=False)
+    raise ValueError(f"unknown light_kind {cfg.light_kind}")

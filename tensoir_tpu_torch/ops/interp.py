@@ -2,8 +2,10 @@
 
 Layouts are the JAX package's: planes ``[H, W, C]``, lines ``[D, C]``,
 volumes ``[D, H, W(, C)]``, coordinates normalized to [-1, 1] with
-``align_corners=True``. The corner-packed plane lookup gathers its rows
-through K1 (``kernels.gather_rows``), whose backward is K2.
+``align_corners=True`` (the plain plane lookup also takes the other
+convention and zero padding, for the lat-long environment maps). The
+corner-packed plane lookup gathers its rows through K1
+(``kernels.gather_rows``), whose backward is K2.
 
 ``clip`` splits the gradient evenly at a tie with a bound, as ``jnp.clip``
 does (``torch.clamp`` passes all of it), so coordinate gradients at the
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tensoir_tpu_torch.kernels import gather_rows
@@ -28,6 +31,14 @@ def clip(x: torch.Tensor, lo: Optional[float],
     if hi is not None:
         x = torch.minimum(x, x.new_full((), hi))
     return x
+
+
+def recip(d: float) -> float:
+    """1 / d rounded to f32, as a Python float. The reference divides by
+    Python constants inside ``jit``, where XLA multiplies by the f32
+    reciprocal instead; PyTorch divides on the CPU and multiplies on CUDA.
+    Multiplying by this on every device gives XLA's numbers everywhere."""
+    return float(np.float32(1.0) / np.float32(d))
 
 
 def _unnormalize(coord, size: int, align_corners: bool):
@@ -51,14 +62,21 @@ def lerp_line(line: torch.Tensor, z: torch.Tensor,
     return v0 * w0[..., None] + v1 * w1[..., None]
 
 
-def bilerp_plane(plane: torch.Tensor, x: torch.Tensor,
-                 y: torch.Tensor) -> torch.Tensor:
-    """Bilinear lookup on a [H, W, C] plane at x (along W) and y (along H),
-    ``align_corners=True`` with border clamping: four plain row lookups,
-    each weighted and summed in the reference's order. Returns [..., C]."""
+def bilerp_plane(plane: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 align_corners: bool = True,
+                 padding: str = "border") -> torch.Tensor:
+    """Bilinear lookup on a [H, W, C] plane at x (along W) and y (along H):
+    four plain row lookups, each weighted and summed in the reference's
+    order. Returns [..., C].
+
+    ``padding`` "border" clamps each corner to the plane; "zeros" gives a
+    corner outside the plane no weight (grid_sample's default, which the
+    lat-long environment lookups use at the poles and the seam)."""
+    if padding not in ("border", "zeros"):
+        raise ValueError(f"unknown padding {padding!r}")
     H, W, C = plane.shape
-    ix = _unnormalize(x, W, True)
-    iy = _unnormalize(y, H, True)
+    ix = _unnormalize(x, W, align_corners)
+    iy = _unnormalize(y, H, align_corners)
     ix0, iy0 = torch.floor(ix), torch.floor(iy)
     wx1, wy1 = ix - ix0, iy - iy0
     wx0, wy0 = 1.0 - wx1, 1.0 - wy1
@@ -66,6 +84,9 @@ def bilerp_plane(plane: torch.Tensor, x: torch.Tensor,
 
     def corner(iyf, ixf, w):
         row = iyf.clamp(0, H - 1).long() * W + ixf.clamp(0, W - 1).long()
+        if padding == "zeros":
+            inb = (ixf >= 0) & (ixf <= W - 1) & (iyf >= 0) & (iyf <= H - 1)
+            w = w * inb.to(w.dtype)
         return flat[row] * w[..., None]
 
     return (corner(iy0, ix0, wy0 * wx0) + corner(iy0, ix0 + 1, wy0 * wx1)

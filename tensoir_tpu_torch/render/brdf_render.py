@@ -115,7 +115,8 @@ def render_with_brdf(
                             fresnel_map)                         # [P, L, 3]
     surface_brdf = albedo_map[:, None, :] / np.pi + specular
 
-    env_rgbs = lighting.get_light_rgbs(params, cfg, in_dirs)     # [Ln, L, 3]
+    env_rgbs = lighting.get_light_rgbs(
+        params, cfg, in_dirs, gt_envmap=scene.get("gt_envmap"))  # [Ln, L, 3]
     # env_rgbs[light_idx] as a one-hot product (a gather's backward would
     # pile every ray's [L, 3] gradient onto the few light rows)
     direct = F.light_rows(env_rgbs.reshape(env_rgbs.shape[0], -1), light_idx)

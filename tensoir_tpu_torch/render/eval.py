@@ -136,14 +136,15 @@ def _to8(x):
     return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
-def _env_strip(cfg, params, test_dataset) -> np.ndarray:
+def _env_strip(cfg, params, scene, test_dataset) -> np.ndarray:
     """Every learned light at 256 x 512, gamma 2.2, stacked vertically;
     with a single light and a probe, the probe resized beside it."""
     _, strip_dirs = lighting.envmap_dirs(256, 512)
     with torch.no_grad():
         pred_envs = lighting.get_light_rgbs(
             params, cfg, torch.as_tensor(strip_dirs,
-                                         device=params["lgt_sgs"].device))
+                                         device=scene["aabb"].device),
+            gt_envmap=scene.get("gt_envmap"))
     pred_envs = pred_envs.cpu().numpy().reshape(-1, 256, 512, 3)
     pred_envs = np.uint8(np.clip(np.power(np.clip(pred_envs, 0, None),
                                           1 / 2.2), 0, 1) * 255)
@@ -209,7 +210,7 @@ def evaluation_iter(
         ndc_ray=ndc_ray, **fast_knobs)
 
     if save_path:
-        env_panel = _env_strip(cfg, params, test_dataset)
+        env_panel = _env_strip(cfg, params, scene, test_dataset)
         write_png(os.path.join(save_path, "envir_map", f"{prtx}envirmap.png"),
                   env_panel)
         if logger is not None:

@@ -1,6 +1,7 @@
 """Secondary rays: visibility and indirect light for (surface point, light
 direction) pairs (port of tensoir_tpu.render.secondary:
-``_march_window``, ``compute_radiance`` and ``secondary_shading_tiled``).
+``_march_window``, ``compute_radiance``, ``secondary_shading_tiled``, and
+``compute_transmittance``, the visibility-only march of relighting).
 
 Each pair marches equally spaced samples toward the light, in one of three
 ways:
@@ -29,6 +30,7 @@ from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.ops.compositing import raw2alpha
+from tensoir_tpu_torch.ops.interp import recip as _recip
 from tensoir_tpu_torch.ops.rays import (linspace, sample_ray_equally,
                                         z_to_dists)
 from tensoir_tpu_torch.render import primary
@@ -48,14 +50,6 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(x, idx, axis=0)`` with JAX's clipping of indices past the
     end (``compact_nonzero`` marks unfilled slots with ``len(x)``)."""
     return x[idx.clamp(max=x.shape[0] - 1)]
-
-
-def _recip(d: float) -> float:
-    """1 / d rounded to f32, as a Python float. The reference divides by
-    Python constants inside ``jit``, where XLA multiplies by the f32
-    reciprocal instead; PyTorch divides on the CPU and multiplies on CUDA.
-    Multiplying by this on every device gives XLA's numbers everywhere."""
-    return float(np.float32(1.0) / np.float32(d))
 
 
 def window_indices(coarse: torch.Tensor, packed_shape, aabb, o, d, *,
@@ -129,6 +123,55 @@ def _march_window(cfg, baked, coarse, aabb, o, d, *, n_sample: int,
     dt = torch.full_like(z, (vis_far - vis_near) / (S - 1))
     dists = torch.where(jj >= S - 1, torch.zeros_like(z), dt)
     return coords, sigma, dists
+
+
+@torch.no_grad()
+def compute_transmittance(
+    cfg: F.FieldConfig,
+    params: Dict,
+    scene: Dict,
+    surf_pts: torch.Tensor,       # [N, 3] world-space surface points
+    light_in_dir: torch.Tensor,   # [N, 3] surface -> light unit dirs
+    *,
+    n_sample: int = 96,
+    vis_near: float = 0.05,
+    vis_far: float = 1.5,
+    march_cap: int = 0,
+    baked: Optional[torch.Tensor] = None,
+    coarse: Optional[torch.Tensor] = None,
+    window: int = 0,
+    window_back: int = 0,
+    prepass_n: int = 18,
+):
+    """Visibility only, for the relighting eval: (nerv_vis [N],
+    nerfactor_vis [N]), the final transmittance and 1 - acc. The exact VM
+    march (``march_cap``: its first occupied samples only), or with
+    ``baked`` and ``coarse`` the window march on the baked grid (the JAX
+    package's baked march without a window has no caller)."""
+    aabb = scene["aabb"]
+    if baked is not None:
+        if coarse is None or not 0 < window < n_sample:
+            raise ValueError("the baked visibility march needs the coarse "
+                             f"occupancy and 0 < window < {n_sample}")
+        _, sigma, dists = _march_window(
+            cfg, baked, coarse, aabb, surf_pts, light_in_dir,
+            n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
+            window=window, prepass_n=prepass_n, window_back=window_back)
+    else:
+        xyz, z_vals, valid = sample_ray_equally(surf_pts, light_in_dir, aabb,
+                                                vis_near, vis_far, n_sample)
+        dists = z_to_dists(z_vals.expand(xyz.shape[:2]))
+        if 0 < march_cap < n_sample:
+            occ = F.sample_alpha_mask_nearest(scene, xyz)
+            midx, valid = primary.select_occupied_samples(valid & occ,
+                                                          march_cap)
+            dists = primary.take_samples(dists, midx)
+            xyz = primary.take_samples(xyz, midx)
+        valid = valid & (F.sample_alpha_mask(scene, xyz) > 0)
+        feat = F.density(cfg, params, F.normalize_coord(aabb, xyz))
+        sigma = torch.where(valid, feat, torch.zeros_like(feat))
+    _, weight, transmittance = raw2alpha(sigma, dists * cfg.distance_scale)
+    return transmittance[..., 0], 1.0 - weight.sum(-1)
 
 
 def _window_probe(sigma, weight, pair_ok, window: int, window_back: int):

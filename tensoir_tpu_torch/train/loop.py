@@ -199,9 +199,14 @@ def reconstruction(
                           f"device type; the run draws from its seed",
                           flush=True)
     else:
+        # the dataset's probe, the light of light_kind='gt' (a relighting
+        # test set's dict of probes is not one)
+        gt_envmap = getattr(dataset, "lights_probes", None)
+        if not isinstance(gt_envmap, np.ndarray):
+            gt_envmap = None
         params, scene = init_field_params(
             torch.Generator().manual_seed(cfg.seed), fcfg, reso_cur, aabb,
-            device=dev)
+            device=dev, gt_envmap=gt_envmap)
 
     lr_factor = decay_factor(cfg.lr_decay_target_ratio,
                              cfg.lr_decay_iters, n_iters)

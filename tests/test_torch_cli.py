@@ -5,6 +5,7 @@ renders the final test and train sets, and a render-only run reloads the
 checkpoint and reproduces the final test metrics exactly. Its parse errors
 are the JAX CLI's, word for word; its refusals name their reasons."""
 import json
+import math
 import os
 
 import pytest
@@ -12,7 +13,8 @@ import torch
 
 import train_tensoir as JCLI
 from tensoir_tpu_torch import train_tensoir as TCLI
-from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+from tensoir_tpu_torch.data.synthetic import (write_relight_test_scene,
+                                              write_shadow_scene)
 from tensoir_tpu_torch.examples import train_synthetic_demo as demo
 from tensoir_tpu_torch.train import loop as TL
 from tensoir_tpu_torch.utils.bench_scene import seed_solid_blob
@@ -130,7 +132,7 @@ def test_cli_parse_errors_match_the_jax_cli(tmp_path):
         ("000", "120"), 7, 1.0)
 
 
-def test_cli_refusals(run):
+def test_cli_refusals(run, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="item 6c"):
         TCLI.parse_cli(["--export_mesh", "1"])
     with pytest.raises(SystemExit, match="train_tensoir.py:73"):
@@ -140,9 +142,35 @@ def test_cli_refusals(run):
                                  "--ckpt", str(run["logdir"] /
                                                "ckpt_final.npz")],
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        TCLI.main(run["argv"] + ["--dataset_name", "tensoIR_relighting_test"],
-                  device="cpu")
+    # a relighting test set loads; training on one fails in both CLIs at
+    # its missing training rays (each train loop reads dataset.all_rays)
+    argv = run["argv"] + ["--dataset_name", "tensoIR_relighting_test"]
+    with pytest.raises(AttributeError, match="all_rays"):
+        TCLI.main(argv, device="cpu")
+    # the JAX CLI turns on its persistent compile cache: keep it in tmp_path
+    # and put the cache settings back afterwards
+    import jax
+    monkeypatch.setenv("TENSOIR_COMPILE_CACHE", str(tmp_path / "xla"))
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs")}
+    try:
+        with pytest.raises(AttributeError, match="all_rays"):
+            JCLI.main(argv)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    # and render-only evaluates on one (under its first light's images)
+    relit = run["root"] / "relight_set"
+    write_relight_test_scene(str(relit / "scene"), str(relit / "hdr"),
+                             n_views=1, size=12, env_hw=(16, 32),
+                             gt_env_hw=(8, 16))
+    res = TCLI.main(run["argv"] + [
+        "--dataset_name", "tensoIR_relighting_test", "--datadir",
+        str(relit / "scene"), "--hdrdir", str(relit / "hdr"), "--basedir",
+        str(relit / "log"), "--render_only", "1", "--render_test", "1",
+        "--ckpt", str(run["logdir"] / "ckpt_final.npz")], device="cpu")
+    assert math.isfinite(res["imgs_test_all"]["psnr_nvs"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TCLI.main(run["argv"])

@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX, of tensoir_tpu, or of
 PIL, imageio and cv2 (the machine with the card has none of the last
 three), and runs a radiance, a relight and a fast-knob relight training
-step, a 3-iteration training run through an alpha-mask and shrink event
+step, a tiny relighting benchmark on a relighting test set written to
+disk, a 3-iteration training run through an alpha-mask and shrink event
 that writes and reads back its checkpoint, and a tiny run of the training
 CLI on a scene written to disk (the loaders, evals during training, the
 final render_test, a render-only run from the checkpoint), on the CPU in a
@@ -73,14 +74,35 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(3), 10001)
     assert math.isfinite(float(m["total_loss"]))
     assert 0.0 <= float(m["sec/app_pair_occupancy"])
-    # a whole training run: 3 iterations with the alpha mask and shrink at
-    # the second, and a checkpoint written and read back
+    # relighting: a relighting test set on disk, its loader, the held-out
+    # light, and a tiny benchmark with its artifact tree
     import os
     import tempfile
+    from tensoir_tpu_torch.data import get_dataset
+    from tensoir_tpu_torch.data.synthetic import write_relight_test_scene
+    from tensoir_tpu_torch.models.env_light import EnvironmentLight
+    from tensoir_tpu_torch.render.relight_pipeline import relight_benchmark
+    with tempfile.TemporaryDirectory() as tmp:
+        write_relight_test_scene(os.path.join(tmp, "s"),
+                                 os.path.join(tmp, "h"), lights=("city",),
+                                 n_views=1, size=12, env_hw=(8, 16),
+                                 gt_env_hw=(4, 8))
+        rds = get_dataset("tensoIR_relighting_test")(
+            os.path.join(tmp, "s"), os.path.join(tmp, "h"), split="test",
+            light_names=("city",))
+        res = relight_benchmark(
+            cfg, params, scene, rds,
+            EnvironmentLight(os.path.join(tmp, "h"), device="cpu"),
+            n_samples=32, save_path=os.path.join(tmp, "out"), chunk=64,
+            n_light_samples=8, second_n_sample=16, vis_tile=256)
+        assert math.isfinite(res["city"]["psnr"])
+        assert os.path.exists(os.path.join(
+            tmp, "out", "test_000", "relighting_with_bg", "city.png"))
+    # a whole training run: 3 iterations with the alpha mask and shrink at
+    # the second, and a checkpoint written and read back
     import tensoir_tpu_torch.profiling  # noqa: F401
     import tensoir_tpu_torch.utils.tb_writer  # noqa: F401
     from tensoir_tpu_torch.config import TensoIRConfig
-    from tensoir_tpu_torch.data import get_dataset
     from tensoir_tpu_torch.data.synthetic import SyntheticShadowDataset
     from tensoir_tpu_torch.models.field import grid_size_of
     from tensoir_tpu_torch.models.lifecycle import (filter_rays_mask, shrink,

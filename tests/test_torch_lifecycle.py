@@ -154,15 +154,23 @@ def test_registry_and_unported_parts():
     assert TDATA.get_dataset("synthetic_sphere") is TD.SyntheticSphereDataset
     from tensoir_tpu.data import dataset_dict as j_names
     assert set(TDATA.dataset_dict) == set(j_names)
-    # the file loaders are ported; the relighting test sets are not
-    for name in ("tensoIR_relighting_test", "tensoIR_material_editing_test"):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            TDATA.get_dataset(name)
+    # every loader is ported, the relighting test sets too
+    from tensoir_tpu_torch.data.relight_test import (
+        TensoIRMaterialEditingTestDataset, TensoIRRelightingTestDataset)
+    assert (TDATA.get_dataset("tensoIR_relighting_test")
+            is TensoIRRelightingTestDataset)
+    assert (TDATA.get_dataset("tensoIR_material_editing_test")
+            is TensoIRMaterialEditingTestDataset)
     with pytest.raises(KeyError):
         TDATA.get_dataset("nope")
+    # the relighting ground truth renders: under a uniform white probe the
+    # lit sphere is grey, the background white
     ds = TD.SyntheticShadowDataset(split="test", n_views=1, img_wh=(4, 4))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ds.render_env_gt(ds.all_rays, np.ones((4, 8, 3), np.float32))
+    gt = ds.render_env_gt(ds.all_rays, np.ones((4, 8, 3), np.float32),
+                          background="white")
+    hit = ds.all_masks > 0
+    assert gt.shape == (16, 3) and hit.any()
+    assert (gt[hit] < 1.0).all() and (gt[~hit] >= 1.0).all()
 
 
 # ---------------------------------------------------------- checkpoints

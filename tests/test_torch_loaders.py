@@ -15,6 +15,7 @@ from tensoir_tpu.data.hdr import write_hdr
 from tensoir_tpu.data.ray_utils import look_at
 
 from tensoir_tpu_torch.data import get_dataset as t_get
+from tensoir_tpu_torch.data.synthetic import write_relight_test_scene
 
 from test_data_loaders import _make_tensoir_fixture, _write_rgba
 
@@ -153,9 +154,18 @@ def test_simple_loader_and_orbit_match_jax(tmp_path):
 
 
 def test_loader_refusals(tmp_path):
+    # the relighting test sets load, as JAX's do, on a relighting scene
+    relit = tmp_path / "relit"
+    write_relight_test_scene(str(relit / "scene"), str(relit / "hdr"),
+                             lights=("city", "night"), n_views=1, size=8,
+                             env_hw=(8, 16), gt_env_hw=(4, 8))
     for name in ("tensoIR_relighting_test", "tensoIR_material_editing_test"):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            t_get(name)
+        kw = dict(split="test", light_names=("city", "night"))
+        tds = t_get(name)(str(relit / "scene"), str(relit / "hdr"), **kw)
+        jds = j_get(name)(str(relit / "scene"), str(relit / "hdr"), **kw)
+        _assert_items(tds, jds)
+        _assert_same(tds, jds, ("lights_probes", "scene_bbox", "img_wh",
+                                "near_far", "white_bg"))
     root = str(tmp_path / "armadillo")
     _make_tensoir_fixture(root, n_views=1, rotations=("000",))
     # a 16 x 16 file for an 8 x 8 view: JAX resizes with PIL, the port

@@ -132,7 +132,8 @@ def test_reconstruction_matches_jax(monkeypatch, tmp_path):
         init["params"], init["scene"] = to_numpy(params), to_numpy(scene)
         return params, scene
 
-    def t_init(gen, fcfg, reso, aabb, device=None):
+    def t_init(gen, fcfg, reso, aabb, device=None, gt_envmap=None):
+        # JAX's scene holds the dataset's probe already, when it has one
         return params_from_numpy(init["params"], init["scene"],
                                  device=device)
 
