@@ -10,7 +10,8 @@
 
 Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
-               sm_90a), one nvcc per source, all at once
+               sm_90a) and the host mesh extractor (g++), one compiler per
+               source, all at once
   step_parity  one deterministic training step at a reduced size (grid 64,
                batch 512, 128 samples) on the card with the kernels and on
                the CPU with the plain versions: loss and every parameter
@@ -115,6 +116,32 @@ Phases, one JSON line each, in this order:
                view of that scene, edited (--roughness_scale 0.5
                --albedo_tint 1,0.3,0.3) and not, on the same draws: the
                images must differ
+  mesh_export  python -m tensoir_tpu_torch.scripts.export_mesh on train_run's
+               ckpt_final, in this process: dense_alpha's seconds and its
+               K1 launches (3 K1-f32 and one K1-bf16 per chunk, K2 none),
+               the host extraction's seconds, vertices and faces, the share
+               of edges shared by two faces (> 0.99), the card's alpha
+               against the CPU's on one x-slab
+  lpips        LPIPS alex and vgg with seeded random weights in the
+               converter's npz layout on one 800x800 pair: card against
+               CPU, ms per call, and rgb_lpips through
+               TENSOIR_LPIPS_WEIGHTS
+  multilight_step_parity
+               one deterministic relight step of each multi-light config
+               (rotated: one SG set under three rotations; general: three
+               SG sets) at a reduced size, rays going round the three
+               lights, on the card and on the CPU: loss and every gradient
+  multilight_cli
+               python -m tensoir_tpu_torch.train_tensoir on
+               configs/multi_light_rotated/armadillo.txt and
+               configs/multi_light_general/armadillo.txt at full width, in
+               this process, each on a three-light shadow scene written for
+               its loader (3 training views of 800x800 and one test view of
+               100x100 per light): 100 radiance iterations, one mask with
+               the shrink, one upsample to 300^3, 8 relight iterations,
+               ckpt_final, the final render_test of every light: median
+               step ms and launches per step per phase, run seconds, PSNR
+               per light; every kernel must launch
   kernels      each kernel against its plain PyTorch version on the card:
                at the shapes the training steps give it on random indices
                (K1 on bf16 rows at the baked grids', the app bake's and the
@@ -126,9 +153,10 @@ Phases, one JSON line each, in this order:
                ms, the bound (bytes moved at 3.35 TB/s) and, for bf16 rows,
                bound_sector_ms (every row read as whole 32-byte sectors);
                at the busiest shape of each kernel in the training run,
-               the eval, the CLI run and the relight runs (the visibility
-               march's density lookup, the fast route's baked grid), and
-               at the eval's density and appearance lookups
+               the eval, the CLI run, the relight runs (the visibility
+               march's density lookup, the fast route's baked grid), the
+               mesh export and the multi-light CLI runs, and at the eval's
+               density and appearance lookups
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -532,6 +560,10 @@ def phase_kernels(streams, busiest):
     # grid (K1-bf16)
     for i, path in enumerate(("relight", "relight_fast")):
         out[path] = busiest_cases(busiest[path], seed=80 + 10 * i)
+    # the mesh export's dense alpha (K1-f32 density rows, K1-bf16 alpha
+    # mask) and the two multi-light CLI runs
+    for i, path in enumerate(NEW_PATHS):
+        out[path] = busiest_cases(busiest[path], seed=100 + 10 * i)
     out["eval_lookups"] = eval_lookup_cases(busiest["eval"])
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
@@ -607,12 +639,14 @@ def field(fcfg, reso, seed, device):
     return seed_solid_blob(params), scene
 
 
-def batch_of(n: int, device):
+def batch_of(n: int, device, lights: int = 1):
+    """``n`` bench rays at grey, ray i under light i % ``lights``."""
     import torch
     from tensoir_tpu_torch.utils.bench_scene import bench_rays
     return {"rays": torch.as_tensor(bench_rays(n), device=device),
             "rgbs": torch.full((n, 3), 0.5, device=device),
-            "light_idx": torch.zeros((n,), dtype=torch.int32, device=device)}
+            "light_idx": (torch.arange(n, device=device) % lights).to(
+                torch.int32)}
 
 
 def phase_step_parity():
@@ -870,11 +904,12 @@ def _to(tree, dev):
 
 
 def _step_on(dev, params0, scene0, make, n_rays, step, bakes, record=None,
-             replay=None):
+             replay=None, lights: int = 1):
     """One deterministic step on ``dev`` from a copy of the CPU field: (loss,
     n_acc_masked, parameters, gradients, the tables ``bakes(params, scene)``
     makes before the step), all on the CPU. ``make(dev)`` builds (optimizer,
-    step function); ``record`` / ``replay`` as in _pair_choice."""
+    step function); ``record`` / ``replay`` as in _pair_choice; the rays go
+    round ``lights`` lights."""
     from tensoir_tpu_torch.train.optim import flatten
     # a copy each: the step updates its parameters in place
     params, scene = _to(params0, dev), _to(scene0, dev)
@@ -883,7 +918,7 @@ def _step_on(dev, params0, scene0, make, n_rays, step, bakes, record=None,
     state = opt.init(params)
     with _pair_choice(record, replay):
         params, state, m = step_fn(params, state, scene,
-                                   batch_of(n_rays, dev), None, step)
+                                   batch_of(n_rays, dev, lights), None, step)
     # Adam's first moment after one step is (1 - b1) * grad
     grads = {k: v.cpu() / 0.1 for k, v in state["mu"].items()}
     return (float(m["total_loss"]), float(m["n_acc_masked"]),
@@ -2424,6 +2459,343 @@ def phase_material_edit(work: str, ckpt: str, scene_dirs) -> None:
     check(not fails, "material_edit: " + "; ".join(fails))
 
 
+# the multi-light configs with the scene writer's lights for each, and the
+# multi-light runs' depth: three training views of 800 x 800 per light and
+# one test view of 100 x 100 (cli_run's 200 x 200 cut to a quarter: three
+# lights are evaluated), MULTI_RADIANCE radiance iterations, then one mask
+# with the shrink, one upsample to 300^3 three iterations later and
+# MULTI_RELIGHT relight iterations
+MULTI_CONFIGS = {
+    "rotated": (ROOT / "configs" / "multi_light_rotated" / "armadillo.txt",
+                dict(rotations=("000", "120", "240"))),
+    "general": (ROOT / "configs" / "multi_light_general" / "armadillo.txt",
+                dict(light_names=("sunset", "snow", "courtyard"))),
+}
+MULTI_VIEWS = (("train", 3, 800), ("test", 1, 100))
+MULTI_RADIANCE = 100
+MULTI_RELIGHT = 8
+
+
+def phase_multilight_step_parity():
+    """One deterministic relight step of each multi-light config (rotated:
+    one SG set under three rotations; general: three SG sets) at a reduced
+    size (grid 48, 128 samples, 256 rays going round the three lights, 64
+    relit, 8x16 light directions, tile 4096, the pair cap lifted), card
+    (kernels) vs CPU (plain versions), from the same masked field made on
+    the CPU: loss 1e-4 relative and every gradient 1e-3 relative in the L2
+    norm, light_line and lgt_sgs included, as relight_step_parity holds its
+    lifted variant (and for the same reasons)."""
+    from tensoir_tpu_torch import config as C
+    loss_tol, grad_tol = 1e-4, 1e-3
+    reso, n_samples, n_rays = (48, 48, 48), 128, 256
+    knobs = dict(relight_ray_cap=64, secondary_tile=4096, march_cap=64,
+                 app_pair_frac=1.0)
+    res, fails = {}, []
+    for setting, (config, _) in MULTI_CONFIGS.items():
+        cfg = C.load_config(str(config))
+        fcfg = dataclasses.replace(C.field_config_from(cfg, NEAR_FAR),
+                                   envmap_h=8, envmap_w=16)
+        params0, scene0 = masked_field(fcfg, reso, seed=3, device="cpu")
+        runs = {dev: _step_on(
+            dev, params0, scene0,
+            lambda d: make_step(fcfg, cfg, n_samples, True, d, relight=True,
+                                **knobs),
+            n_rays, cfg.update_AlphaMask_list[0], lambda p, s: [],
+            lights=fcfg.light_num) for dev in ("cuda", "cpu")}
+        (l_gpu, n_acc, _, g_gpu, _), (l_cpu, _, _, g_cpu, _) = (
+            runs["cuda"], runs["cpu"])
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        g_rel = _grad_rel_err(g_gpu, g_cpu)
+        per_light = g_cpu["light_line"].abs().sum(1)
+        res[setting] = {
+            "light_num": fcfg.light_num, "per_light_sg": fcfg.per_light_sg,
+            "light_rotations": list(fcfg.light_rotations),
+            "lgt_sgs_shape": list(g_cpu["lgt_sgs"].shape),
+            "loss_cuda": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": rel,
+            "n_acc_masked": n_acc, "grad_rel_err_max": max(g_rel.values()),
+            "worst_grad": max(g_rel, key=g_rel.get),
+            "grad_rel_err_light": {k: g_rel[k]
+                                   for k in ("light_line", "lgt_sgs")}}
+        if not (math.isfinite(l_gpu) and rel <= loss_tol):
+            fails.append(f"{setting} loss {l_gpu} vs {l_cpu}: {rel}")
+        over = {k: v for k, v in g_rel.items() if v > grad_tol}
+        if over:
+            fails.append(f"{setting} gradients over {grad_tol}: {over}")
+        if per_light.shape != (3,) or not bool((per_light > 0).all()):
+            fails.append(f"{setting}: a light row without gradient "
+                         f"{per_light.tolist()}")
+        if fcfg.per_light_sg and tuple(g_cpu["lgt_sgs"].shape[:1]) != (3,):
+            fails.append(f"{setting}: lgt_sgs {g_cpu['lgt_sgs'].shape}")
+    emit({"phase": "multilight_step_parity", "ok": not fails, "fails": fails,
+          "settings": res, "reso": list(reso), "n_rays": n_rays,
+          "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol}})
+    check(not fails, "multilight_step_parity: " + "; ".join(fails))
+
+
+def phase_multilight_cli():
+    """The port's CLI, in this process, on each multi-light config at full
+    width (VM 16/48, 128 SGs per set, batch 4096, 128^3 -> 300^3) on the
+    shadow scene written for that config's loader (MULTI_VIEWS, three
+    lights): MULTI_RADIANCE radiance iterations, the mask with the shrink,
+    the upsample to 300^3, MULTI_RELIGHT relight iterations, ckpt_final and
+    the final render_test (per light in the general setting, as the CLI
+    does; in the rotated setting the CLI evaluates light 0 and lights 1 and
+    2 are evaluated here from ckpt_final with the CLI's eval settings).
+    Launch counts from 0 before each run to the end of its evals; every
+    kernel must launch, every event happen at its iteration, every PSNR be
+    finite. Returns (launch counts per path, launches by shape)."""
+    import torch
+    from tensoir_tpu_torch import train_tensoir
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models.field import grid_size_of
+    from tensoir_tpu_torch.models.lifecycle import cal_n_samples
+    from tensoir_tpu_torch.render.eval import evaluation_iter
+    from tensoir_tpu_torch.train import loop
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    n_iters = MULTI_RADIANCE + 3 + MULTI_RELIGHT
+    launches, shapes, fails = {}, {}, []
+    for setting, (config, lights) in MULTI_CONFIGS.items():
+        path = f"multilight_{setting}"
+        with tempfile.TemporaryDirectory() as tmp:
+            data, hdr, logs = (os.path.join(tmp, d) for d in ("scene", "hdr",
+                                                               "log"))
+            t0 = time.perf_counter()
+            write_shadow_scene(data, hdr, views=MULTI_VIEWS, **lights)
+            write_s = time.perf_counter() - t0
+            argv = ["--config", str(config), "--datadir", data, "--hdrdir",
+                    hdr, "--basedir", logs, "--n_iters", str(n_iters),
+                    "--update_AlphaMask_list", f"[{MULTI_RADIANCE}]",
+                    "--upsamp_list", f"[{MULTI_RADIANCE + 3}]",
+                    "--N_vis", "0", "--test_number", "1"]
+            log = {"events": [], "steps": []}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with _run_probe(loop, log), kernel_calls(path, shapes), \
+                    contextlib.redirect_stdout(sys.stderr):
+                results = train_tensoir.main(argv)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                psnr = {}
+                for key, r in results.items():
+                    li = int(key[-1]) if key[-1].isdigit() else 0
+                    psnr[li] = (r["psnr_nvs"], r["psnr_nvs_brdf"])
+                t1 = time.perf_counter()
+                if setting == "rotated":
+                    cfg = train_tensoir.parse_cli(argv)
+                    fcfg, params, scene, _ = load_checkpoint(os.path.join(
+                        logs, cfg.expname, "ckpt_final.npz"))
+                    n_samples = min(cfg.nSamples, cal_n_samples(
+                        grid_size_of(params), cfg.step_ratio))
+                    test = train_tensoir.build_dataset(cfg, "test")
+                    for li in (1, 2):
+                        r = evaluation_iter(
+                            fcfg, params, scene, test, n_samples=n_samples,
+                            test_all=True, light_idx_to_test=li,
+                            **train_tensoir._eval_kw(cfg))
+                        psnr[li] = (r["psnr_nvs"], r["psnr_nvs_brdf"])
+                torch.cuda.synchronize()
+                extra_eval_s = time.perf_counter() - t1
+            launches[path] = dict(LAUNCHES)
+        segs = _segments(log["steps"])
+        res = {"phase": "multilight_cli", "setting": setting,
+               "config": str(config.relative_to(ROOT)),
+               "views": [list(v) for v in MULTI_VIEWS], "n_iters": n_iters,
+               "scene_write_s": write_s, "run_s": run_s,
+               "extra_light_evals_s": extra_eval_s, "segments": segs,
+               "events": [e for e in log["events"]
+                          if e["event"] != "rebuild"],
+               "psnr_nvs_by_light": [psnr.get(li, (None,))[0]
+                                     for li in range(3)],
+               "psnr_nvs_brdf_by_light": [psnr.get(li, (None, None))[1]
+                                          for li in range(3)],
+               "results": results, "launches": launches[path],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        mine = []
+        if sorted(psnr) != [0, 1, 2] or not all(
+                math.isfinite(x) for v in psnr.values() for x in v):
+            mine.append(f"PSNR per light {psnr}")
+        if not all(v > 0 for v in launches[path].values()):
+            mine.append(f"a kernel was not launched: {launches[path]}")
+        for name, its in (("update_alpha_mask", [MULTI_RADIANCE]),
+                          ("shrink", [MULTI_RADIANCE]),
+                          ("upsample", [MULTI_RADIANCE + 3])):
+            got = [e["it"] for e in log["events"] if e["event"] == name]
+            if got != its:
+                mine.append(f"{name} at {got}, not {its}")
+        phases = [seg["phase"] for seg in segs]
+        if phases[:1] != ["radiance"] or phases[-1:] != ["relight"]:
+            mine.append(f"step phases {phases}")
+        res["ok"] = not mine
+        emit(res)
+        fails += [f"{setting}: {f}" for f in mine]
+    check(not fails, "multilight_cli: " + "; ".join(fails))
+    return launches, shapes
+
+
+def phase_mesh_export(ckpt: str):
+    """``python -m tensoir_tpu_torch.scripts.export_mesh`` on train_run's
+    ckpt_final, in this process: the dense alpha at the field's own grid
+    on the card (K1 launches counted from 0 just before; 3 K1-f32 and one
+    K1-bf16 per chunk of x-slabs, K2 none), the host extraction, the PLY.
+    Reports each part's seconds, the mesh's size and the share of its edges
+    shared by exactly two faces (must exceed 0.99), and holds the card's
+    alpha on the middle x-slab against the CPU's (1e-5 absolute: the same
+    sums in other orders, on values in [0, 1]). Returns (launch counts,
+    launches by shape)."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models import field as F
+    from tensoir_tpu_torch.models import lifecycle
+    from tensoir_tpu_torch.scripts import export_mesh
+    from tensoir_tpu_torch.utils import mesh_export
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    timing, keep, shapes = {}, {}, {}
+    saved = (lifecycle.dense_alpha, mesh_export.extract_mesh)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            out, timing[name] = _timed(fn, *a, **kw)
+            keep[name] = out
+            return out
+        return run
+
+    lifecycle.dense_alpha = timed("dense_alpha", saved[0])
+    mesh_export.extract_mesh = timed("extract", saved[1])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        with kernel_calls("mesh_export", shapes), \
+                contextlib.redirect_stdout(sys.stderr):
+            (out, verts, faces), total_s = _timed(export_mesh.main,
+                                                  ["--ckpt", ckpt])
+    finally:
+        lifecycle.dense_alpha, mesh_export.extract_mesh = saved
+    launches = dict(LAUNCHES)
+    alpha = keep["dense_alpha"]
+    gx, gy, gz = alpha.shape
+    chunks = -(-gx // max(1, lifecycle._ALPHA_CHUNK_POINTS // (gy * gz)))
+    # the CPU's alpha on the middle x-slab, from the same file, computed as
+    # dense_alpha computes each slab
+    fcfg, params, scene, _ = load_checkpoint(ckpt, device="cpu")
+    x0 = gx // 2
+    lin = [torch.from_numpy(np.linspace(0, 1, g, dtype=np.float32))
+           for g in (gx, gy, gz)]
+    yy, zz = torch.meshgrid(lin[1], lin[2], indexing="ij")
+    samples = torch.stack([lin[0][x0].expand(gy, gz), yy, zz], -1)
+    xyz = scene["aabb"][0] * (1.0 - samples) + scene["aabb"][1] * samples
+    step = F.step_size(scene["aabb"], F.grid_size_of(params), fcfg.step_ratio)
+    cpu_slab = F.compute_alpha_grid(fcfg, params, scene, xyz.reshape(-1, 3),
+                                    step).reshape(gy, gz)
+    slab_err = float((alpha[x0].cpu() - cpu_slab).abs().max())
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                    faces[:, [2, 0]]]), 1)
+    _, counts = np.unique(edges, axis=0, return_counts=True)
+    two = float((counts == 2).mean())
+    want = {"row_gather": 3 * chunks, "row_gather_bf16": chunks,
+            "row_scatter_add": 0}
+    res = {"phase": "mesh_export", "grid": [gx, gy, gz], "chunks": chunks,
+           "seconds": total_s, "dense_alpha_s": timing["dense_alpha"],
+           "extract_s": timing["extract"], "vertices": len(verts),
+           "faces": len(faces), "ply_bytes": os.path.getsize(out),
+           "edges_shared_by_two": two, "occupied": float(
+               (alpha > 0.005).float().mean()),
+           "launches": launches, "launches_expected": want,
+           "slab_x": x0, "slab_max_abs_err": slab_err,
+           "tol": {"slab_abs": 1e-5, "edges_shared_by_two": 0.99}}
+    fails = []
+    if launches != want:
+        fails.append(f"launches {launches}, not {want}")
+    if not (len(faces) > 1000 and two > 0.99):
+        fails.append(f"{len(faces)} faces, {two} of edges shared by two")
+    if not slab_err <= 1e-5:
+        fails.append(f"card alpha vs CPU on slab {x0}: {slab_err}")
+    if Path(out).suffix != ".ply" or not Path(out).exists():
+        fails.append(f"no PLY at {out}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "mesh_export: " + "; ".join(fails))
+    return launches, shapes
+
+
+def _lpips_plan(net: str):
+    """(in, out, kernel) of each feature convolution and the channels of
+    each tap's lin head, from utils/lpips.py's layer tables."""
+    from tensoir_tpu_torch.utils import lpips
+    if net == "alex":
+        outs = [c[0] for c in lpips.ALEX_CONVS]
+        kernels = [c[1] for c in lpips.ALEX_CONVS]
+        taps = outs
+    else:
+        outs = [c for group in lpips.VGG_GROUPS for c in group]
+        kernels = [3] * len(outs)
+        taps = [group[-1] for group in lpips.VGG_GROUPS]
+    return list(zip([3] + outs[:-1], outs, kernels)), taps
+
+
+def _lpips_weights(path: str, net: str, seed: int) -> None:
+    """Seeded random LPIPS weights in the converter's npz layout
+    (scripts/convert_lpips_weights.py): conv{i}_w [Kh, Kw, I, O] He-scaled,
+    conv{i}_b [O], lin{t}_w [C] >= 0, net."""
+    rng = np.random.default_rng(seed)
+    convs, taps = _lpips_plan(net)
+    out = {"net": np.asarray(net)}
+    for i, (ci, co, k) in enumerate(convs):
+        out[f"conv{i}_w"] = (rng.normal(size=(k, k, ci, co))
+                             * np.sqrt(2.0 / (ci * k * k))).astype(np.float32)
+        out[f"conv{i}_b"] = (0.01 * rng.normal(size=co)).astype(np.float32)
+    for t, c in enumerate(taps):
+        out[f"lin{t}_w"] = (0.1 * rng.uniform(size=c)).astype(np.float32)
+    np.savez(path, **out)
+
+
+def phase_lpips():
+    """LPIPS (alex and vgg) with seeded random weights written in the
+    converter's npz layout, on one 800 x 800 pair: the card's distance
+    against the CPU's (1e-4 relative: cuDNN may take Winograd or FFT
+    algorithms for f32, whose rounding exceeds a direct sum's, through up to
+    13 layers; TF32 is off), ms per call on the card (CUDA events, the
+    upload of the pair included, as rgb_lpips calls it), the CPU's seconds;
+    then rgb_lpips through TENSOIR_LPIPS_WEIGHTS, which must give the card's
+    distance."""
+    import torch
+    from tensoir_tpu_torch.utils import lpips, metrics
+    rng = np.random.default_rng(9)
+    a = rng.uniform(0, 1, (800, 800, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    res, fails = {}, []
+    env = os.environ.get("TENSOIR_LPIPS_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, net in enumerate(("alex", "vgg")):
+            path = os.path.join(tmp, f"lpips_{net}.npz")
+            _lpips_weights(path, net, seed=20 + i)
+            p_gpu, _ = lpips.load_lpips_params(path, "cuda")
+            p_cpu, _ = lpips.load_lpips_params(path, "cpu")
+            d_gpu = float(lpips.lpips_distance(p_gpu, a, b, net)[0])
+            t0 = time.perf_counter()
+            d_cpu = float(lpips.lpips_distance(p_cpu, a, b, net)[0])
+            cpu_s = time.perf_counter() - t0
+            ms = time_ms(lambda: lpips.lpips_distance(p_gpu, a, b, net),
+                         reps=5, warm=2)
+            os.environ["TENSOIR_LPIPS_WEIGHTS"] = path
+            via_metric = metrics.rgb_lpips(a, b, net)
+            rel = abs(d_gpu - d_cpu) / abs(d_cpu)
+            res[net] = {"cuda": d_gpu, "cpu": d_cpu, "rel_err": rel,
+                        "ms": ms, "cpu_s": cpu_s, "rgb_lpips": via_metric}
+            if not (math.isfinite(d_gpu) and d_cpu > 0 and rel <= 1e-4):
+                fails.append(f"{net}: card {d_gpu} vs CPU {d_cpu}")
+            if not abs(via_metric - d_gpu) <= 1e-4 * d_gpu:
+                fails.append(f"{net}: rgb_lpips {via_metric} vs {d_gpu}")
+    if env is None:
+        os.environ.pop("TENSOIR_LPIPS_WEIGHTS", None)
+    else:
+        os.environ["TENSOIR_LPIPS_WEIGHTS"] = env
+    emit({"phase": "lpips", "ok": not fails, "fails": fails, "size": 800,
+          "nets": res, "tol": {"rel": 1e-4}})
+    check(not fails, "lpips: " + "; ".join(fails))
+
+
 def eval_lookup_cases(shapes) -> dict:
     """Both kernels at the eval's primary VM lookups, on random indices:
     the density at the culled march (C 64, N = chunk x march cap 256) and
@@ -2499,13 +2871,23 @@ PATH_CASES = {
     "relight_fast": {"row_gather": ("relight_fast", "row_gather"),
                      "row_gather_bf16": ("relight_fast", "row_gather_bf16"),
                      "row_scatter_add": None},
+    # the mesh export's dense alpha (no gradient: K2 does not launch), and
+    # the CLI on each multi-light config
+    "mesh_export": {"row_gather": ("mesh_export", "row_gather"),
+                    "row_gather_bf16": ("mesh_export", "row_gather_bf16"),
+                    "row_scatter_add": None},
+    "multilight_rotated": {name: ("multilight_rotated", name)
+                           for name in KERNEL_SOURCES},
+    "multilight_general": {name: ("multilight_general", name)
+                           for name in KERNEL_SOURCES},
 }
+NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general")
 # the path whose numbers lead each kernel's summary entry: the CLI run
 # (training, the evals, render-only), the one path that runs all three
 # kernels (K2 does not launch on the relight path)
 MAIN_PATH = "cli_run"
 _OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run", "relight",
-                     "relight_fast")
+                     "relight_fast", *NEW_PATHS)
 
 
 def kernel_summary(cases, launches, shapes, chunks) -> list:
@@ -2606,10 +2988,17 @@ def _run(steps_only: bool, work: str, t_start: float, streams: dict,
         shapes.update(counts)
         del trained
         phase_material_edit(work, ckpt, scene_dirs)
+        launches["mesh_export"], counts = phase_mesh_export(ckpt)
+        shapes.update(counts)
+        phase_lpips()
+        phase_multilight_step_parity()
+        counts_by_path, counts = phase_multilight_cli()
+        launches.update(counts_by_path)
+        shapes.update(counts)
         cases = phase_kernels(streams, {
             path: {k: n for k, n in shapes.items() if k[0] == path}
             for path in ("train_run", "eval", "cli_run", "relight",
-                         "relight_fast")})
+                         "relight_fast", *NEW_PATHS)})
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1

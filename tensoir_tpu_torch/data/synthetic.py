@@ -358,25 +358,37 @@ def _write_view(root, split: str, k: int, count: int, size: int):
 
 def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
                                                 ("test", 1, 200)),
-                       env_hw=(1024, 2048)) -> None:
-    """The shadow scene as a TensoIR-Synthetic scene on disk, for the
-    rotated-lights loader with light ``sunset`` at rotation ``000``:
-    ``<root>/<split>_NNN/`` view folders with metadata.json (a 0.69 rad
-    field of view), ``rgba_sunset_000.png``, albedo.png and normal.png, and
-    ``<hdr_dir>/sunset.hdr`` of ``env_hw``. ``views``: (split, count,
-    square size) per split. Each image is the scene's analytic GT on the
-    rays the loader computes from the view's metadata (alpha 255 on the
-    sphere and the disc, 0 elsewhere); its PNG rows take the five filter
-    types in turn. The probe is a smooth sky with a sun, RGBE."""
-    gt = SyntheticShadowDataset(split="train", n_views=1, img_wh=(1, 1))
+                       env_hw=(1024, 2048), rotations=("000",),
+                       light_names=()) -> None:
+    """The shadow scene as a TensoIR-Synthetic scene on disk: for the
+    rotated-lights loader, light ``sunset`` at each of ``rotations``
+    (``rgba_sunset_{rot}.png`` and ``<hdr_dir>/sunset.hdr``); with
+    ``light_names``, for the general multi-light loader
+    (``rgba_{name}.png`` and ``<hdr_dir>/{name}.hdr`` for each name).
+    ``<root>/<split>_NNN/`` view folders hold metadata.json (a 0.69 rad
+    field of view), the lit images, albedo.png and normal.png; ``views``:
+    (split, count, square size) per split. The image of the k-th of n
+    lights is the scene's analytic GT under its k-th light (the base light
+    turned 360 k / n degrees about z, as ``SyntheticShadowDataset(
+    light_num=n)`` lights view k), on the rays the loader computes from the
+    view's metadata (alpha 255 on the sphere and the disc, 0 elsewhere);
+    its PNG rows take the five filter types in turn. The probe is a smooth
+    sky with a sun, RGBE, its columns rolled by k / n of a turn for the
+    k-th named light."""
+    files = ([f"rgba_{name}.png" for name in light_names] if light_names
+             else [f"rgba_sunset_{rot}.png" for rot in rotations])
+    gt = SyntheticShadowDataset(split="train", n_views=1, img_wh=(1, 1),
+                                light_num=len(files))
     for split, count, size in views:
         for k in range(count):
             view, rays = _write_view(root, split, k, count, size)
             o, d = rays[:, :3], rays[:, 3:6]
-            rgb, normal, _, mask = gt._render_gt(o, d)
+            for li, name in enumerate(files):
+                gt.light_dir = gt.light_dirs[li]
+                rgb, normal, _, mask = gt._render_gt(o, d)
+                write_png(os.path.join(view, name), _rgba8(rgb, mask, size),
+                          _FILTERS)
             albedo = np.where((mask > 0)[:, None], gt.albedo_gt(o, d), 1.0)
-            write_png(os.path.join(view, "rgba_sunset_000.png"),
-                      _rgba8(rgb, mask, size), _FILTERS)
             write_png(os.path.join(view, "albedo.png"),
                       _rgba8(albedo, mask, size), _FILTERS)
             write_png(os.path.join(view, "normal.png"),
@@ -386,9 +398,11 @@ def write_shadow_scene(root, hdr_dir, *, views=(("train", 2, 800),
     u = np.linspace(0.0, 1.0, w)[None, :, None]
     sky = (0.3 + 0.9 * (1.0 - v)) * np.array([0.6, 0.75, 1.0])
     sun = 40.0 * np.exp(-((u - 0.3) ** 2 + (v - 0.25) ** 2) / 2e-4)
+    probe = (sky + sun * np.array([1.0, 0.9, 0.7])).astype(np.float32)
     os.makedirs(hdr_dir, exist_ok=True)
-    write_hdr(os.path.join(hdr_dir, "sunset.hdr"),
-              (sky + sun * np.array([1.0, 0.9, 0.7])).astype(np.float32))
+    for k, name in enumerate(light_names or ("sunset",)):
+        write_hdr(os.path.join(hdr_dir, f"{name}.hdr"),
+                  np.roll(probe, k * w // len(files), axis=1))
 
 
 def relight_probe(i: int, env_hw) -> np.ndarray:

@@ -234,6 +234,7 @@ def evaluation_iter(
 
     psnrs, psnrs_brdf, ssims, ssims_brdf = [], [], [], []
     lpipss: Dict[str, list] = {}
+    dev = scene["aabb"].device           # LPIPS runs where the field does
     maes, albedo_single_sq, albedo_three_sq = [], [], []
     albedo_ssims: Dict[str, list] = {}
     n_frames = 0
@@ -260,10 +261,10 @@ def evaluation_iter(
             ssims.append(M.rgb_ssim(rgb_map, gt_rgb))
             ssims_brdf.append(M.rgb_ssim(brdf_map, gt_rgb))
             for net in ("alex", "vgg"):
-                lp = M.rgb_lpips(gt_rgb, rgb_map, net)
+                lp = M.rgb_lpips(gt_rgb, rgb_map, net, dev)
                 if lp is not None:
                     lpipss.setdefault(f"lpips_{net}", []).append(lp)
-                lp = M.rgb_lpips(gt_rgb, brdf_map, net)
+                lp = M.rgb_lpips(gt_rgb, brdf_map, net, dev)
                 if lp is not None:
                     lpipss.setdefault(f"lpips_{net}_brdf", []).append(lp)
 
@@ -301,7 +302,7 @@ def evaluation_iter(
                     albedo_ssims.setdefault(f"ssim_albedo_{tag}", []).append(
                         M.rgb_ssim(aligned, gt_albedo))
                     for net in ("alex", "vgg"):
-                        lp = M.rgb_lpips(gt_albedo, aligned, net)
+                        lp = M.rgb_lpips(gt_albedo, aligned, net, dev)
                         if lp is not None:
                             albedo_ssims.setdefault(
                                 f"lpips_{net}_albedo_{tag}", []).append(lp)

@@ -258,7 +258,7 @@ def relight_benchmark(
             psnrs[name].append(M.psnr(img_wo, gt_img))
             ssims[name].append(M.rgb_ssim(img_wo, gt_img))
             if compute_extra_metrics:
-                lp = M.rgb_lpips(gt_img, img_wo)
+                lp = M.rgb_lpips(gt_img, img_wo, device=dev)
                 if lp is not None:
                     lpips_scores[name].append(lp)
             if view_dir:

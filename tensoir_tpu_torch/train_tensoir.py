@@ -5,14 +5,16 @@ during training and at the end, or evaluate a checkpoint.
 Usage:
   python -m tensoir_tpu_torch.train_tensoir --config configs/single_light/armadillo.txt
   python -m tensoir_tpu_torch.train_tensoir --config ... --render_only 1 --render_test 1 --ckpt <ckpt_final.npz>
+  python -m tensoir_tpu_torch.train_tensoir --config ... --export_mesh 1 --ckpt <ckpt_final.npz>
 
 Any config key can be overridden as ``--key value``. It runs on the card;
 ``main(argv, device="cpu")`` runs it on the CPU from Python (there is no
-flag for the device). Refused at parse time: ``--export_mesh`` (mesh export
-is not ported, ROADMAP queue 1 item 6c) and ``dataset_name =
-synthetic_sphere``, which the JAX CLI cannot build either (it passes the
-data directories positionally into the scene's (split, n_views)); the
-synthetic scenes run through ``tensoir_tpu_torch.examples``.
+flag for the device). ``--export_mesh 1`` writes the checkpoint's mesh
+(level 0.005) beside it, then stops unless ``render_only`` or
+``render_test`` is set, as the JAX CLI does. Refused at parse time:
+``dataset_name = synthetic_sphere``, which the JAX CLI cannot build either
+(it passes the data directories positionally into the scene's (split,
+n_views)); the synthetic scenes run through ``tensoir_tpu_torch.examples``.
 """
 from __future__ import annotations
 
@@ -51,9 +53,6 @@ def parse_cli(argv=None) -> TensoIRConfig:
         overrides[key] = _coerce(key, _parse_value(rest[i + 1]), fields)
         i += 2
     cfg = load_config(known.config, overrides)
-    if cfg.export_mesh:
-        raise SystemExit("--export_mesh: mesh export is not ported yet "
-                         "(ROADMAP queue 1 item 6c)")
     if cfg.dataset_name == "synthetic_sphere":
         raise SystemExit(
             "dataset_name = synthetic_sphere: the JAX CLI passes datadir and "
@@ -121,8 +120,9 @@ def _eval_kw(cfg: TensoIRConfig) -> dict:
 def main(argv=None, device: DeviceLike = None) -> dict:
     """Run the CLI with ``argv`` (None: ``sys.argv[1:]``) on ``device``
     (None: the card). Returns each final evaluation's metrics under the
-    name of its output directory (``imgs_test_all``, ...) and, for
-    ``--render_path``, the frames written under ``imgs_path_all``."""
+    name of its output directory (``imgs_test_all``, ...), for
+    ``--render_path`` the frames written under ``imgs_path_all``, and for
+    ``--export_mesh`` the PLY's path under ``mesh``."""
     cfg = parse_cli(argv)
     dev = resolve_device(device)
 
@@ -133,6 +133,13 @@ def main(argv=None, device: DeviceLike = None) -> dict:
 
     logfolder = os.path.join(cfg.basedir, cfg.expname)
     out = {}
+
+    if cfg.export_mesh:
+        from tensoir_tpu_torch.scripts.export_mesh import export_checkpoint
+        out["mesh"], _, _ = export_checkpoint(cfg.ckpt, 0.005, dev)
+        print(f"mesh written to {out['mesh']}")
+        if not (cfg.render_only or cfg.render_test):
+            return out
 
     if cfg.render_only and (cfg.render_test or cfg.render_train
                             or cfg.render_path):

@@ -1,6 +1,6 @@
 """Evaluation metrics (the port's own copy of tensoir_tpu.utils.metrics):
-PSNR, the mipnerf SSIM, normal MAE, LPIPS (None without weights) and the
-JET depth colouring, on numpy arrays."""
+PSNR, the mipnerf SSIM, normal MAE, LPIPS (``utils/lpips.py``; None
+without a weights file) and the JET depth colouring, on numpy arrays."""
 from __future__ import annotations
 
 import os
@@ -82,16 +82,25 @@ def find_lpips_weights(net_name: str):
     return None
 
 
-def rgb_lpips(gt, im, net_name="alex"):
-    """LPIPS v0.1. No weights ship with the repo, so this returns None, as
-    the JAX package does; the network itself is not ported, so a weights
-    file that is found raises rather than leaving the number out."""
+_LPIPS_PARAMS = {}
+
+
+def rgb_lpips(gt, im, net_name="alex", device=None):
+    """LPIPS v0.1 of two [H, W, 3] images in [0, 1], on ``device`` (None:
+    the card). No weights ship with the repo: without a converted weights
+    file (``find_lpips_weights``) this returns None, as the JAX package
+    does. The parameters are loaded once per file, net and device."""
     path = find_lpips_weights(net_name)
     if path is None:
         return None
-    raise NotImplementedError(
-        f"LPIPS weights found at {path}, but the LPIPS network is not ported "
-        f"yet (ROADMAP queue 1 item 6d)")
+    from tensoir_tpu_torch.device import resolve_device
+    from tensoir_tpu_torch.utils import lpips
+    dev = resolve_device(device)
+    key = (path, net_name, str(dev))
+    if key not in _LPIPS_PARAMS:
+        _LPIPS_PARAMS[key] = lpips.load_lpips_params(path, dev)[0]
+    d = lpips.lpips_distance(_LPIPS_PARAMS[key], gt, im, net=net_name)
+    return float(d[0])
 
 
 def _jet_table() -> np.ndarray:

@@ -14,6 +14,7 @@ import zlib
 import cv2
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from tensoir_tpu.data import hdr as JH
@@ -83,8 +84,15 @@ def test_lpips_is_none_without_weights_and_refuses_with_them(tmp_path,
     np.savez(tmp_path / "w.npz", net=np.array("vgg"))
     monkeypatch.setenv("TENSOIR_LPIPS_WEIGHTS", str(tmp_path / "w.npz"))
     assert TM.rgb_lpips(img, img, "alex") is None     # another net's file
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.rgb_lpips(img, img, "vgg")
+    # the net's own file is used (tests/test_torch_lpips.py computes with
+    # one): on the card unless the caller asks for the CPU, and a file that
+    # lacks the network's weights is refused by the name of the first
+    monkeypatch.setattr(TM, "_LPIPS_PARAMS", {})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TM.rgb_lpips(img, img, "vgg")
+    with pytest.raises(KeyError, match="conv0_w"):
+        TM.rgb_lpips(img, img, "vgg", device="cpu")
 
 
 @pytest.mark.parametrize("src,dsize", [((1024, 2048, 3), (512, 256)),

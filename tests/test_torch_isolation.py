@@ -5,8 +5,9 @@ step, a tiny relighting benchmark on a relighting test set written to
 disk, a 3-iteration training run through an alpha-mask and shrink event
 that writes and reads back its checkpoint, and a tiny run of the training
 CLI on a scene written to disk (the loaders, evals during training, the
-final render_test, a render-only run from the checkpoint), on the CPU in a
-process where none of them can be imported."""
+final render_test, a render-only run from the checkpoint, a mesh export
+from it), on the CPU in a process where none of them can be imported; the
+LPIPS network, colmap2nerf and the multi-light demos import there too."""
 import re
 import subprocess
 import sys
@@ -165,6 +166,15 @@ STEP = textwrap.dedent("""
             "--render_only", "1", "--render_test", "1", "--ckpt",
             os.path.join(run, "ckpt_final.npz")], device="cpu")
         assert again == res and math.isfinite(res["imgs_test_all"]["psnr_nvs"])
+        mesh = train_tensoir.main(argv + [
+            "--export_mesh", "1", "--render_test", "0", "--ckpt",
+            os.path.join(run, "ckpt_final.npz")], device="cpu")
+        assert mesh == {"mesh": os.path.join(run, "ckpt_final.ply")}
+        assert open(mesh["mesh"], "rb").read(3) == b"ply"
+    import tensoir_tpu_torch.data.colmap2nerf  # noqa: F401
+    import tensoir_tpu_torch.examples.train_general_multilight_demo  # noqa
+    import tensoir_tpu_torch.scripts.export_mesh  # noqa: F401
+    import tensoir_tpu_torch.utils.lpips  # noqa: F401
     assert not any(k.split(".")[0] in ("jax", "tensoir_tpu", "PIL", "imageio",
                                        "cv2")
                    for k, v in sys.modules.items() if v is not None)

@@ -175,3 +175,66 @@ def test_loader_refusals(tmp_path):
         cls(root, None, split="train", downsample=2.0)
     assert j_get("tensoIR_unknown_rotated_lights")(
         root, None, split="train", downsample=2.0).all_rays.shape == (64, 6)
+
+
+CAMERAS = {
+    "SIMPLE_RADIAL": "1 SIMPLE_RADIAL 800 600 700 400 300 0.01",
+    "PINHOLE": "1 PINHOLE 640 480 500 510 320 240",
+    "RADIAL": "1 RADIAL 800 600 700 401 299 0.01 -0.002",
+    "OPENCV": "1 OPENCV 800 600 700 705 400 300 0.01 -0.02 0.001 0.002",
+    "SIMPLE_PINHOLE": "1 SIMPLE_PINHOLE 320 240 300 160 120",
+}
+
+
+@pytest.mark.parametrize("model", sorted(CAMERAS))
+def test_colmap_conversion_matches_jax(tmp_path, model):
+    """colmap2nerf's conversion without the colmap binary: synthetic
+    cameras.txt / images.txt of five frames on a ring, looking inwards
+    (random unit quaternions about a look-at pose) -> transforms.json, and
+    its helpers on random inputs; the port's output equals JAX's."""
+    from tensoir_tpu.data import colmap2nerf as J
+    from tensoir_tpu_torch.data import colmap2nerf as T
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        q = rng.normal(size=4)
+        a, b = (v / np.linalg.norm(v) for v in rng.normal(size=(2, 3)))
+        oa, da, ob, db = rng.normal(size=(4, 3))
+        assert np.array_equal(T._qvec2rotmat(q), J._qvec2rotmat(q))
+        assert np.array_equal(T._rotmat_between(a, b),
+                              J._rotmat_between(a, b))
+        pt, w = T._closest_point_2_lines(oa, da, ob, db)
+        jpt, jw = J._closest_point_2_lines(oa, da, ob, db)
+        assert np.array_equal(pt, jpt) and w == jw
+    assert np.array_equal(T._rotmat_between(a, -a), -np.eye(3))
+    text = tmp_path / "text"
+    text.mkdir()
+    (text / "cameras.txt").write_text(f"# cameras\n{CAMERAS[model]}\n")
+    lines = ["# images"]
+    for k in range(5):
+        ang = 2 * np.pi * k / 5
+        eye = np.array([np.cos(ang), np.sin(ang), 0.5]) * 3.0
+        w2c = np.linalg.inv(np.concatenate([look_at(eye), [[0, 0, 0, 1]]]))
+        # a rotation matrix -> quaternion (w, x, y, z), for qvec2rotmat(-q)
+        r = w2c[:3, :3]
+        w = np.sqrt(max(1e-12, 1 + np.trace(r))) / 2
+        q = -np.array([w, (r[2, 1] - r[1, 2]) / (4 * w),
+                       (r[0, 2] - r[2, 0]) / (4 * w),
+                       (r[1, 0] - r[0, 1]) / (4 * w)])
+        q += 1e-3 * rng.normal(size=4)
+        vals = " ".join(repr(float(v)) for v in (*q, *w2c[:3, 3]))
+        lines += [f"{k + 1} {vals} 1 frame_{k}.png", "1.0 2.0 -1"]
+    (text / "images.txt").write_text("\n".join(lines) + "\n")
+    outs = {}
+    for name, mod in (("jax", J), ("port", T)):
+        out = tmp_path / name / "transforms.json"
+        out.parent.mkdir()
+        mod.colmap_text_to_transforms(str(text), str(tmp_path / "images"),
+                                      str(out))
+        outs[name] = json.loads(out.read_text())
+    assert outs["port"] == outs["jax"]
+    assert len(outs["port"]["frames"]) == 5
+    # the binaries are not here: both refuse the same way
+    if not __import__("shutil").which("colmap"):
+        for mod in (J, T):
+            with pytest.raises(SystemExit, match="colmap binary not found"):
+                mod.main(["--images", str(tmp_path / "images")])
