@@ -142,6 +142,37 @@ Phases, one JSON line each, in this order:
                ckpt_final, the final render_test of every light: median
                step ms and launches per step per phase, run seconds, PSNR
                per light; every kernel must launch
+  dp_nccl      data-parallel (parallel/): one process in a one-rank NCCL
+               group, 3 deterministic relight steps of relight_train's
+               field at full width through make_train_step(mesh=...)
+               against the same steps without a mesh: the group's
+               reduction exact, the first loss bit-equal, the rest
+               bit-equal if two ungrouped runs are (K2's atomics may make
+               them differ), else loss 1e-5, gradients 1e-3; all_reduce
+               bytes and ms, median step ms beside relight_train's
+  dp_gloo2     two processes of tensoir_tpu_torch/scripts/multihost_worker.py
+               on cuda:0 over gloo: the same step on 2 x 2048 rays against
+               one process on 4096 (relight and pair caps lifted): loss
+               1e-5, every gradient 1e-3, the ranks' parameters bit-equal;
+               then at the config's cap (reported); gloo all_reduce ms,
+               peak memory, launches per rank-step
+  dp_run       reconstruction on two gloo ranks on cuda:0 at full width on
+               the demo's data: mask + shrink, a checkpoint, one upsample,
+               a stop file; only rank 0's log_dir, bit-equal ranks, one
+               stop iteration, wall s
+  dp_launch    the path a user launches: python -m torch.distributed.run
+               --standalone --nproc_per_node 1, the group made from the
+               launcher's environment (NCCL, cuda:LOCAL_RANK): the worker's
+               step against one process (loss 1e-5, gradients 1e-3, ranks
+               bit-equal, the NCCL all_reduce's ms), then the CLI at full
+               width (mask + shrink, upsample, an eval, a checkpoint, then
+               rank 0's STOP written by the smoke): rank 0's artifacts, the
+               stop after the save, each rank's states in ckpt_final, ms
+               per radiance and relight iteration. `python3 chip_smoke.py
+               --dp-launch` runs only this phase, on every card of the
+               machine and then on one
+               (a failed or hung rank kills the others; each dp phase
+               prints its seconds to stderr)
   kernels      each kernel against its plain PyTorch version on the card:
                at the shapes the training steps give it on random indices
                (K1 on bf16 rows at the baked grids', the app bake's and the
@@ -155,8 +186,8 @@ Phases, one JSON line each, in this order:
                at the busiest shape of each kernel in the training run,
                the eval, the CLI run, the relight runs (the visibility
                march's density lookup, the fast route's baked grid), the
-               mesh export and the multi-light CLI runs, and at the eval's
-               density and appearance lookups
+               mesh export, the multi-light CLI runs and the data-parallel
+               phases, and at the eval's density and appearance lookups
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -186,6 +217,8 @@ CONFIG = ROOT / "configs" / "single_light" / "armadillo.txt"
 AABB = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
 NEAR_FAR = (2.0, 6.0)                          # data/tensoir.py near_far
 BATCH = 4096
+# step ms of the timed phases, for the phases that report beside them
+STEP_MS = {}
 KERNEL_SOURCES = {
     "row_gather": ("tensoir_tpu_torch/csrc/row_gather.cu",
                    "scripts/bench_pallas_scatter.py:78 (make_gather.kernel)"),
@@ -583,14 +616,12 @@ def relight_sizes(cfg):
     return n_vox, reso, min(cfg.nSamples, cal_n_samples(reso, cfg.step_ratio))
 
 
-def make_step(fcfg, cfg, n_samples, deterministic, device, relight=False,
-              **relight_kw):
-    """The step train/loop.py builds for the radiance phase, or with
+def step_knobs(cfg, n_samples, deterministic, relight=False, **relight_kw):
+    """(StepStatic fields, LossWeights fields, make_optimizer's rates) of
+    the step train/loop.py builds for the radiance phase, or with
     ``relight`` for the relight phase (``relight_kw`` overrides its
     StepStatic fields, to cut the size)."""
-    from tensoir_tpu_torch.train.optim import decay_factor, make_optimizer
-    from tensoir_tpu_torch.train.step import (LossWeights, StepStatic,
-                                              make_train_step)
+    from tensoir_tpu_torch.train.optim import decay_factor
     lr_factor = decay_factor(cfg.lr_decay_target_ratio, cfg.lr_decay_iters,
                              cfg.n_iters)
     if relight:
@@ -605,29 +636,43 @@ def make_step(fcfg, cfg, n_samples, deterministic, device, relight=False,
                   second_near=cfg.second_near, second_far=cfg.second_far,
                   secondary_tile=cfg.secondary_tile)
         kw.update(relight_kw)
-        st = StepStatic(n_samples=n_samples, is_relight=True, white_bg=True,
-                        app_cap=cfg.app_cap_per_ray,
-                        deterministic=deterministic, **kw)
-        w = LossWeights(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_rest,
-                        rgb_brdf=cfg.rgb_brdf_weight,
-                        normals_diff=cfg.normals_diff_weight,
-                        normals_ori=cfg.normals_orientation_weight,
-                        albedo_sm=cfg.albedo_smoothness_loss_weight,
-                        rough_sm=cfg.roughness_smoothness_loss_weight,
-                        lr_factor=lr_factor, n_iters=cfg.n_iters,
-                        relight_start=cfg.update_AlphaMask_list[0])
+        st = dict(n_samples=n_samples, is_relight=True, white_bg=True,
+                  app_cap=cfg.app_cap_per_ray, deterministic=deterministic,
+                  **kw)
+        w = dict(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_rest,
+                 rgb_brdf=cfg.rgb_brdf_weight,
+                 normals_diff=cfg.normals_diff_weight,
+                 normals_ori=cfg.normals_orientation_weight,
+                 albedo_sm=cfg.albedo_smoothness_loss_weight,
+                 rough_sm=cfg.roughness_smoothness_loss_weight,
+                 lr_factor=lr_factor, n_iters=cfg.n_iters,
+                 relight_start=cfg.update_AlphaMask_list[0])
     else:
-        st = StepStatic(n_samples=n_samples, is_relight=False, white_bg=True,
-                        app_cap=cfg.app_cap_per_ray, march_cap=0,
-                        deterministic=deterministic)
-        w = LossWeights(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_inital,
-                        tv_density=cfg.TV_weight_density,
-                        tv_app=cfg.TV_weight_app, lr_factor=lr_factor,
-                        n_iters=cfg.n_iters,
-                        relight_start=cfg.update_AlphaMask_list[0])
-    opt = make_optimizer(None, cfg.lr_init, cfg.lr_basis, lr_factor,
-                         lr_light=cfg.lr_light)
-    return opt, make_train_step(fcfg, opt, st, w, device=device)
+        st = dict(n_samples=n_samples, is_relight=False, white_bg=True,
+                  app_cap=cfg.app_cap_per_ray, march_cap=0,
+                  deterministic=deterministic)
+        w = dict(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_inital,
+                 tv_density=cfg.TV_weight_density,
+                 tv_app=cfg.TV_weight_app, lr_factor=lr_factor,
+                 n_iters=cfg.n_iters,
+                 relight_start=cfg.update_AlphaMask_list[0])
+    lr = dict(lr_init=cfg.lr_init, lr_basis=cfg.lr_basis,
+              lr_decay_factor=lr_factor, lr_light=cfg.lr_light)
+    return st, w, lr
+
+
+def make_step(fcfg, cfg, n_samples, deterministic, device, relight=False,
+              mesh=None, **relight_kw):
+    """(optimizer, step function) of ``step_knobs``' step on ``device``,
+    under ``mesh`` when given."""
+    from tensoir_tpu_torch.train.optim import make_optimizer
+    from tensoir_tpu_torch.train.step import (LossWeights, StepStatic,
+                                              make_train_step)
+    st, w, lr = step_knobs(cfg, n_samples, deterministic, relight,
+                           **relight_kw)
+    opt = make_optimizer(None, **lr)
+    return opt, make_train_step(fcfg, opt, StepStatic(**st),
+                                LossWeights(**w), device=device, mesh=mesh)
 
 
 def field(fcfg, reso, seed, device):
@@ -1093,6 +1138,7 @@ def phase_relight_train(streams):
             it += 1
         torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    STEP_MS["relight_train"] = step_ms
     launches = dict(LAUNCHES)
     marched = dict(secondary.MARCHED)
     losses = [float(x["total_loss"]) for x in mets]
@@ -2108,11 +2154,13 @@ def phase_cli_run():
 
 # the relight phases: the relighting test config, the side of its test
 # views (cut from TensoIR-Synthetic's 800 x 800: at 80 x 80 a view took
-# 8.4 s on the card, 200 x 200 keeps the phase near two minutes), and the
-# rays of relight_parity (both devices relight them, the CPU at full width)
+# 8.4 s on the card, 200 x 200 about a minute), one view (a second took
+# another minute, which the smoke's time limit no longer has room for),
+# and the rays of relight_parity (both devices relight them, the CPU at
+# full width)
 RELIGHT_CONFIG = ROOT / "configs" / "relighting_test" / "armadillo.txt"
 RELIGHT_WH = 200
-RELIGHT_VIEWS = 2
+RELIGHT_VIEWS = 1
 RELIGHT_PARITY_RAYS = 64
 RELIGHT_LIGHTS = ("bridge", "city", "fireplace", "forest", "night")
 
@@ -2796,6 +2844,726 @@ def phase_lpips():
     check(not fails, "lpips: " + "; ".join(fails))
 
 
+# ---- data-parallel training (parallel/): dp_nccl, dp_gloo2, dp_run ----
+
+DP_STEPS = 3
+# the dp_run schedule: radiance steps, then the first mask with the shrink,
+# a checkpoint, the armadillo schedule's first upsample, and the stop file
+DP_RUN = dict(mask=20, save=22, upsample=25, stop=30)
+DP_TIMEOUT = 300
+
+
+def _dp_relight_setup():
+    """The relight step's full-width field (relight_train's: the blob at the
+    first upsample's grid, masked) and its iteration."""
+    from tensoir_tpu_torch import config as C
+    cfg, _, _ = slice_sizes()
+    n_vox, reso, n_samples = relight_sizes(cfg)
+    fcfg = C.field_config_from(cfg, NEAR_FAR)
+    params, scene = masked_field(fcfg, reso, seed=0, device="cuda")
+    return cfg, fcfg, reso, n_samples, params, scene
+
+
+def phase_dp_nccl(work: str):
+    """One process, a one-rank NCCL group: DP_STEPS deterministic relight
+    steps at full width through make_train_step(mesh=...) against the same
+    steps without a mesh, each from a copy of one field.
+
+    Held: the group's reduction is the identity, bit for bit (the sum over
+    one rank, divided by one), on the gradients and metrics of every step;
+    the first step's loss equals the ungrouped step's, bit for bit. The
+    later steps and the parameters equal the ungrouped run's bit for bit
+    when two ungrouped runs do; when they do not (K2 adds with atomics, in
+    an order that changes from run to run), their losses within 1e-5
+    relative and the first step's gradients within 1e-3 relative L2 (the
+    relight step parity's bounds). Reported: the all_reduce's bytes and ms
+    per step (CUDA events), the steps' median ms, grouped and not (timed
+    in turns, without the checks' wrappers), beside relight_train's, and
+    what NCCL says to two ranks on this one card.
+    Returns (launch counts, launches by shape) of the grouped run."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.parallel import make_mesh, multihost
+    from tensoir_tpu_torch.scripts.multihost_worker import time_all_reduce
+    from tensoir_tpu_torch.train import step as step_mod
+    from tensoir_tpu_torch.train.optim import flatten
+    t_phase = time.perf_counter()
+    cfg, fcfg, reso, n_samples, params0, scene = _dp_relight_setup()
+    batch = batch_of(BATCH, "cuda")
+    it0 = cfg.update_AlphaMask_list[0]
+    dev = torch.device("cuda", 0)
+    check(multihost.initialize(init_method=f"file://{work}/nccl_rdzv",
+                               world_size=1, rank=0, backend="nccl",
+                               device=dev), "dp_nccl: no group was made")
+    reduce = step_mod._reduce
+    exact = []
+
+    def recorded(mesh, grads, metrics):
+        g, m = reduce(mesh, grads, metrics)
+        exact.append(all(torch.equal(grads[k], g[k]) for k in grads)
+                     and all(torch.equal(metrics[k], m[k]) for k in m))
+        return g, m
+
+    def run(mesh):
+        params = _to(params0, "cuda")
+        opt, step_fn = make_step(fcfg, cfg, n_samples, True, "cuda",
+                                 relight=True, mesh=mesh)
+        state = opt.init(params)
+        losses, ms, grads = [], [], None
+        for i in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, scene, batch, None,
+                                       it0 + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["total_loss"]))
+            if i == 0:
+                grads = {k: v / 0.1 for k, v in state["mu"].items()}
+        return losses, flatten(params), grads, ms
+
+    shapes = {}
+    try:
+        mesh = make_mesh(1)
+        check(mesh.group is not None and mesh.world == 1, "dp_nccl mesh")
+        plain = run(None)
+        step_mod._reduce = recorded
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        try:
+            with kernel_calls("dp_nccl", shapes):
+                grouped = run(mesh)
+        finally:
+            step_mod._reduce = reduce
+        launches = dict(LAUNCHES)
+        again = run(None)
+        # step times without the checks' wrappers, in turns
+        timed = {"plain": [], "grouped": []}
+        for m in (None, mesh, mesh, None):
+            timed["grouped" if m else "plain"] += run(m)[3]
+        numel = sum(v.numel() for v in grouped[1].values())
+        ar = time_all_reduce(mesh, numel, dev, 20)
+        backend = torch.distributed.get_backend()
+    finally:
+        multihost.shutdown()
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k])
+                                    for k in a[1])
+    reproducible = same(plain, again)
+    bit_equal = same(grouped, plain)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(grouped[0], plain[0]))
+    g_rel = _grad_rel_err(grouped[2], plain[2])
+    fails = []
+    if backend != "nccl":
+        fails.append(f"backend {backend}")
+    if not (len(exact) == DP_STEPS and all(exact)):
+        fails.append(f"the one-rank reduction is not the identity: {exact}")
+    if grouped[0][0] != plain[0][0]:
+        fails.append(f"first loss {grouped[0][0]!r} != {plain[0][0]!r}")
+    if reproducible and not bit_equal:
+        fails.append("grouped steps differ from reproducible plain steps")
+    if not reproducible:
+        if not loss_rel <= 1e-5:
+            fails.append(f"loss {loss_rel} over 1e-5")
+        over = {k: v for k, v in g_rel.items() if v > 1e-3}
+        if over:
+            fails.append(f"gradients over 1e-3: {over}")
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched: {launches}")
+    # two NCCL ranks on one card: NCCL refuses them; what it says
+    pair_s, pair_failed, pair_logs = _spawn_ranks(
+        "nccl_pair", lambda r: {"rdzv": f"file://{work}/nccl_pair_rdzv",
+                                "rank": r}, work, may_fail=True, timeout=90)
+    refusal = sorted({ln.strip() for log in pair_logs
+                      for ln in log.splitlines()[-1:] + [
+                          x for x in log.splitlines()
+                          if "Duplicate GPU" in x or "NCCL" in x]})
+    param_diff = max(float((grouped[1][k] - plain[1][k]).abs().max())
+                     for k in plain[1])
+    rerun_diff = max(float((again[1][k] - plain[1][k]).abs().max())
+                     for k in plain[1])
+    emit({"phase": "dp_nccl", "ok": not fails, "fails": fails,
+          "backend": backend, "world": 1, "grid": list(reso),
+          "batch": BATCH, "steps": DP_STEPS,
+          "reduction_exact": exact, "plain_reproducible": reproducible,
+          "bit_equal": bit_equal, "losses": grouped[0],
+          "losses_plain": plain[0], "loss_rel_err": loss_rel,
+          "grad_rel_err_max": max(g_rel.values()),
+          "param_max_abs_diff": param_diff,
+          "plain_rerun_param_max_abs_diff": rerun_diff,
+          "all_reduce_bytes": ar["bytes"], "all_reduce_ms": ar["ms"],
+          "step_ms": timed["grouped"], "plain_step_ms": timed["plain"],
+          "step_ms_median": float(np.median(timed["grouped"])),
+          "plain_step_ms_median": float(np.median(timed["plain"])),
+          "relight_train_step_ms": STEP_MS.get("relight_train"),
+          "launches": launches,
+          "launches_per_step": {k: v / DP_STEPS for k, v in launches.items()},
+          "two_ranks_one_card": {"failed": pair_failed, "seconds": pair_s,
+                                 "refusal": refusal[:6]},
+          "seconds": time.perf_counter() - t_phase,
+          "tol": {"loss_rel": 1e-5, "grad_rel_l2": 1e-3}})
+    check(not fails, "dp_nccl: " + "; ".join(fails))
+    return launches, shapes
+
+
+def _spawn_ranks(role: str, args_of_rank, work: str, world: int = 2,
+                 may_fail: bool = False, timeout: float = DP_TIMEOUT):
+    """Run ``world`` children of this script (``--dp-child role args``),
+    each rank's output in a log under ``work``. A child that fails kills the
+    others, and so does the time limit, so that no rank is left waiting in
+    a collective. Returns the seconds it took; a failure raises, or with
+    ``may_fail`` is returned: (seconds, what failed, each rank's log)."""
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        log = open(os.path.join(work, f"{role}_rank{r}.log"), "w")
+        logs.append(log)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "TENSOIR_STOP_FILE")}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-child",
+             role, json.dumps(args_of_rank(r))], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)))
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() - t0 > timeout:
+                failed = f"ranks still running after {timeout} s"
+                break
+            time.sleep(0.2)
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    seconds = time.perf_counter() - t0
+    tails = []
+    for r in range(world):
+        with open(os.path.join(work, f"{role}_rank{r}.log")) as f:
+            tails.append(f.read()[-3000:])
+    if may_fail:
+        return seconds, failed, tails
+    if failed:
+        raise SmokeFailure(f"{role}: {failed}\n" + "\n".join(
+            f"--- rank {r}:\n{t}" for r, t in enumerate(tails)))
+    return seconds
+
+
+def _read_counts(path: str) -> dict:
+    with open(path) as f:
+        return {tuple(k): n for k, n in json.load(f)}
+
+
+def phase_dp_gloo2(work: str):
+    """Two worker processes (tensoir_tpu_torch/scripts/multihost_worker.py),
+    both on cuda:0, in a gloo group: the full-width deterministic relight
+    step on 2 x 2048 rays against this process's step on all 4096. The
+    relight cap is lifted to the batch and the per-tile pair cap to the
+    tile (app_pair_frac 1), so that no cap keeps other rays or pairs on
+    one rank than on one process. Held: the first step's loss within 1e-5
+    relative, every gradient within 1e-3 relative L2 (the relight step
+    parity's bounds), both ranks' parameters bit-equal after 2 steps, and
+    every kernel launched. Then once more at the config's own cap (1024 a
+    rank, 1024 on one process): how far per-rank capping moves the loss,
+    reported, not held. Reported: the gloo all_reduce's ms (CUDA tensors
+    through the host), peak memory per rank, K1/K2 launches per rank-step.
+    Returns (rank 0's launch counts, its launches by shape)."""
+    import dataclasses as dc
+    import torch
+    from tensoir_tpu_torch.scripts import multihost_worker as W
+    t_phase = time.perf_counter()
+    cfg, fcfg, reso, n_samples, params, scene = _dp_relight_setup()
+    it0 = cfg.update_AlphaMask_list[0]
+    st, w, lr = step_knobs(cfg, n_samples, True, relight=True,
+                           relight_ray_cap=BATCH, app_pair_frac=1.0)
+    spec = os.path.join(work, "dp_spec.npz")
+    batch = {k: v.cpu() for k, v in batch_of(BATCH, "cuda").items()}
+    W.write_spec(spec, dc.asdict(fcfg), params, scene, batch,
+                 {"relight": {"static": st, "weights": w, "step": it0}}, lr)
+    del params, scene
+    # one process on the whole batch, each cap
+    dev = torch.device("cuda", 0)
+    loaded = W.load_spec(spec, dev)
+    one = {cap: W.run_case(loaded, "relight", 1, dev, None,
+                           relight_ray_cap=cap)
+           for cap in (BATCH, cfg.relight_ray_cap)}
+    del loaded
+    torch.cuda.empty_cache()
+    steps = 2
+
+    def args(r):
+        return {"path": "dp_gloo2",
+                "counts": os.path.join(work, f"dp_gloo2_counts{r}.json"),
+                "argv": ["--init-method", f"file://{work}/gloo_rdzv",
+                         "--world", "2", "--rank", str(r), "--device",
+                         "cuda:0", "--backend", "gloo", "--params-npz", spec,
+                         "--out", os.path.join(work, f"dp_gloo2_{r}.npz"),
+                         "--steps", str(steps), "--relight",
+                         "--relight-ray-cap", str(BATCH),
+                         str(cfg.relight_ray_cap), "--time-all-reduce", "10"]}
+    wall_s = _spawn_ranks("dp_gloo2", args, work)
+    outs = [W.read_out(os.path.join(work, f"dp_gloo2_{r}.npz"))
+            for r in range(2)]
+    m0, m1 = outs[0]["meta"], outs[1]["meta"]
+    fails = []
+    lifted, capped = m0["cases"]
+    ref = one[BATCH]
+    loss_rel = abs(lifted["losses"][0] - ref["losses"][0]) / abs(
+        ref["losses"][0])
+    g_rel = {k: float(np.linalg.norm(g - ref["grads"][k].cpu().numpy())
+                      / max(np.linalg.norm(ref["grads"][k].cpu().numpy()),
+                            1e-30))
+             for k, g in outs[0]["grads"][0].items()}
+    if not loss_rel <= 1e-5:
+        fails.append(f"loss {lifted['losses'][0]} vs {ref['losses'][0]}: "
+                     f"{loss_rel} over 1e-5")
+    over = {k: v for k, v in g_rel.items() if v > 1e-3}
+    if over:
+        fails.append(f"gradients over 1e-3: {over}")
+    for i, (a, b) in enumerate(zip(m0["cases"], m1["cases"])):
+        if a["digests"] != b["digests"] or a["losses"] != b["losses"]:
+            fails.append(f"case {i}: the ranks' parameters differ")
+    if (m0["backend"], m1["backend"]) != ("gloo", "gloo"):
+        fails.append(f"backends {m0['backend']}, {m1['backend']}")
+    launches = {k: sum(c["launches"][k] for c in m0["cases"])
+                for k in m0["cases"][0]["launches"]}
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched: {launches}")
+    cap_ref = one[cfg.relight_ray_cap]
+    emit({"phase": "dp_gloo2", "ok": not fails, "fails": fails,
+          "backend": "gloo", "world": 2, "device": m0["device"],
+          "grid": list(reso), "batch": BATCH, "rays_per_rank": BATCH // 2,
+          "steps": steps, "loss_ranks": lifted["losses"][0],
+          "loss_one_process": ref["losses"][0], "loss_rel_err": loss_rel,
+          "grad_rel_err_max": max(g_rel.values()),
+          "worst_grad": max(g_rel, key=g_rel.get),
+          "n_acc_masked": lifted["n_acc_masked"][0],
+          "n_acc_masked_one_process": ref["n_acc_masked"][0],
+          "config_cap": cfg.relight_ray_cap,
+          "config_cap_loss_ranks": capped["losses"][0],
+          "config_cap_loss_one_process": cap_ref["losses"][0],
+          "config_cap_loss_rel_diff": abs(
+              capped["losses"][0] - cap_ref["losses"][0])
+          / abs(cap_ref["losses"][0]),
+          "all_reduce_bytes": m0["all_reduce"]["bytes"],
+          "all_reduce_ms": [m0["all_reduce"]["ms"], m1["all_reduce"]["ms"]],
+          "step_s_ranks": [lifted["step_s"], m1["cases"][0]["step_s"]],
+          "peak_mem_gb": [m0["cases"][0].get("peak_mem_gb"),
+                          m1["cases"][0].get("peak_mem_gb")],
+          # per case: the lifted cap relights 2048 rays a rank (64 tiles of
+          # pairs), the config's 1024 (32 tiles)
+          "launches_per_rank_step": [
+              {k: v / steps for k, v in c["launches"].items()}
+              for c in m0["cases"]],
+          "wall_s": wall_s, "seconds": time.perf_counter() - t_phase,
+          "tol": {"loss_rel": 1e-5, "grad_rel_l2": 1e-3}})
+    check(not fails, "dp_gloo2: " + "; ".join(fails))
+    return launches, _read_counts(os.path.join(work, "dp_gloo2_counts0.json"))
+
+
+def dp_run_config():
+    """configs/single_light/armadillo.txt at full width with the iterations
+    cut to DP_RUN's: the first alpha mask with the shrink, a periodic
+    checkpoint, the armadillo schedule's first upsample (its voxel count
+    made the final one), progress every 5 iterations, and a long n_iters
+    that the stop file ends."""
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.models.lifecycle import voxel_schedule
+    cfg = C.load_config(str(CONFIG))
+    first_upsample = voxel_schedule(cfg.N_voxel_init, cfg.N_voxel_final,
+                                    len(cfg.upsamp_list))[0]
+    return cfg.replace(n_iters=1000, update_AlphaMask_list=(DP_RUN["mask"],),
+                       upsamp_list=(DP_RUN["upsample"],),
+                       N_voxel_final=first_upsample,
+                       save_iters=DP_RUN["save"], progress_refresh_rate=5,
+                       vis_every=0)
+
+
+def phase_dp_run(work: str):
+    """reconstruction on two gloo ranks on cuda:0 (children of this script)
+    on the demo's data, dp_run_config's schedule; rank 0's progress
+    callback makes its <log_dir>/STOP at iteration DP_RUN["stop"]. Held:
+    only rank 0's log_dir exists (with the checkpoints, the metrics and
+    the config), both ranks end with bit-equal parameters, both stop at
+    that iteration, every kernel launched. Reported: wall s of each rank,
+    launches per rank-iteration. Returns (rank 0's launch counts, its
+    launches by shape)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "dp_run")
+    os.makedirs(root)
+
+    def args(r):
+        return {"rdzv": f"file://{work}/run_rdzv", "rank": r,
+                "log_dir": os.path.join(root, f"log_r{r}"),
+                "out": os.path.join(root, f"rank{r}.json"),
+                "counts": os.path.join(root, f"counts{r}.json")}
+    wall_s = _spawn_ranks("dp_run", args, work)
+    res = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    fails = []
+    files = sorted(os.listdir(os.path.join(root, "log_r0")))
+    want = {f"ckpt_{DP_RUN['save']}.npz", "ckpt_final.npz", "config.txt",
+            "metrics.jsonl"}
+    if not want <= set(files):
+        fails.append(f"rank 0's log_dir holds {files}")
+    if os.path.exists(os.path.join(root, "log_r1")):
+        fails.append("rank 1 made its log_dir")
+    if res[0]["digests"] != res[1]["digests"]:
+        fails.append("the ranks' final parameters differ")
+    stops = [x["iterations"][-1] for x in res]
+    if stops != [DP_RUN["stop"]] * 2:
+        fails.append(f"the ranks stopped at {stops}")
+    launches = res[0]["launches"]
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched: {launches}")
+    n_it = DP_RUN["stop"] + 1
+    emit({"phase": "dp_run", "ok": not fails, "fails": fails,
+          "backend": "gloo", "world": 2, "batch_per_rank": BATCH // 2,
+          "schedule": DP_RUN, "grid_final": res[0]["grid"],
+          "stopped_at": stops, "rank0_files": files,
+          "run_s": [x["run_s"] for x in res], "wall_s": wall_s,
+          "seconds": time.perf_counter() - t_phase,
+          "loss_last": [x["loss_last"] for x in res],
+          "peak_mem_gb": [x["peak_mem_gb"] for x in res],
+          "launches": launches,
+          "launches_per_iteration": {k: v / n_it
+                                     for k, v in launches.items()}})
+    check(not fails, "dp_run: " + "; ".join(fails))
+    return launches, _read_counts(os.path.join(root, "counts0.json"))
+
+
+# the dp_launch CLI schedule: radiance steps, the first mask with the
+# shrink at 20, the upsample to 300^3 at 21, relight steps, the eval at 29,
+# the checkpoint at 30, then rank 0's STOP, written by this process as soon
+# as that checkpoint appears
+DP_LAUNCH = dict(mask=20, upsample=21, eval=29, save=30)
+DP_LAUNCH_VIEWS = (("train", 1, 800), ("test", 1, 200))
+DP_LAUNCH_STEPS = 5
+
+
+def _torchrun(nproc: int, argv: list, log_path: str,
+              timeout: float = DP_TIMEOUT, on_poll=None) -> float:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` + ``argv``, its output in ``log_path``; ``on_poll()`` runs while
+    it does. The launcher and its ranks are a session of their own, killed
+    together on the time limit. Returns the seconds it took; a failure
+    raises with the log's end."""
+    import signal
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "TENSOIR_STOP_FILE")}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(nproc), *argv], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+            start_new_session=True)
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > timeout:
+                    break
+                if on_poll:
+                    on_poll()
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        raise SmokeFailure(f"{' '.join(argv[:3])} on {nproc} ranks exited "
+                           f"{proc.returncode} after {seconds:.1f} s:\n{tail}")
+    return seconds
+
+
+def _dp_spec(work: str):
+    """dp_gloo2's spec (relight_train's field, the relight and pair caps
+    lifted to the batch), written once into ``work``: (path, iteration)."""
+    import dataclasses as dc
+    from tensoir_tpu_torch.scripts import multihost_worker as W
+    spec = os.path.join(work, "dp_spec.npz")
+    cfg, fcfg, reso, n_samples, params, scene = _dp_relight_setup()
+    it0 = cfg.update_AlphaMask_list[0]
+    if not os.path.exists(spec):
+        st, w, lr = step_knobs(cfg, n_samples, True, relight=True,
+                               relight_ray_cap=BATCH, app_pair_frac=1.0)
+        batch = {k: v.cpu() for k, v in batch_of(BATCH, "cuda").items()}
+        W.write_spec(spec, dc.asdict(fcfg), params, scene, batch,
+                     {"relight": {"static": st, "weights": w, "step": it0}},
+                     lr)
+    return spec, cfg, reso
+
+
+def phase_dp_launch(work: str, nproc: int):
+    """The path a user launches: PyTorch's launcher (python -m
+    torch.distributed.run --standalone --nproc_per_node nproc), every rank
+    joining its group in multihost.initialize() from the launcher's
+    environment: NCCL, on the default device cuda:LOCAL_RANK.
+    1. tensoir_tpu_torch.scripts.multihost_worker on dp_gloo2's spec: the
+       full-width relight step on nproc x 4096 / nproc rays against this
+       process on all 4096 (caps lifted), DP_LAUNCH_STEPS steps each. Held:
+       the first loss within 1e-5 relative, every gradient within 1e-3
+       relative L2, the ranks' parameters bit-equal after the steps.
+       Reported: the median step ms after the first, launched and in this
+       process, and the NCCL all_reduce's ms for the gradients' bucket
+       (over NVLink when nproc > 1).
+    2. the CLI (train_tensoir.main, through a child of this script that
+       counts the kernels' launches) on configs/single_light/armadillo.txt
+       at full width over a shadow scene written to ``work`` (one 800^2
+       training view, one 200^2 test view), on DP_LAUNCH's schedule with
+       N_vis 1 and no final render. Held: every rank exits 0; rank 0's
+       run directory holds both checkpoints, the config, one metrics line
+       per iteration, and the eval's one record and images; ckpt_final was
+       written at the stop, after the save, with each rank's generator and
+       sampler states; every kernel launched on rank 0. Reported: wall s,
+       median ms per radiance and per relight iteration (from rank 0's
+       elapsed_s), the eval's s.
+    Returns (rank 0's launch counts, its launches by shape)."""
+    import torch
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    from tensoir_tpu_torch.scripts import multihost_worker as W
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    t_phase = time.perf_counter()
+    root = os.path.join(work, f"dp_launch{nproc}")
+    os.makedirs(root)
+    fails = []
+    # 1. the worker's step under the launcher, against one process
+    spec, cfg, reso = _dp_spec(work)
+    dev = torch.device("cuda", 0)
+    ref = W.run_case(W.load_spec(spec, dev), "relight", DP_LAUNCH_STEPS,
+                     dev, None, relight_ray_cap=BATCH)
+    torch.cuda.empty_cache()
+    worker_s = _torchrun(nproc, [
+        "-m", "tensoir_tpu_torch.scripts.multihost_worker", "--params-npz",
+        spec, "--out", os.path.join(root, "worker_{rank}.npz"), "--steps",
+        str(DP_LAUNCH_STEPS), "--relight", "--relight-ray-cap", str(BATCH),
+        "--time-all-reduce", "20"], os.path.join(root, "worker.log"))
+    outs = [W.read_out(os.path.join(root, f"worker_{r}.npz"))
+            for r in range(nproc)]
+    metas = [o["meta"] for o in outs]
+    case0 = metas[0]["cases"][0]
+    loss_rel = abs(case0["losses"][0] - ref["losses"][0]) / abs(
+        ref["losses"][0])
+    g_rel = _grad_rel_err({k: torch.from_numpy(v) for k, v in
+                           outs[0]["grads"][0].items()},
+                          {k: v.cpu() for k, v in ref["grads"].items()})
+    if not loss_rel <= 1e-5:
+        fails.append(f"worker loss {loss_rel} over 1e-5")
+    over = {k: v for k, v in g_rel.items() if v > 1e-3}
+    if over:
+        fails.append(f"worker gradients over 1e-3: {over}")
+    if any(m["cases"][0]["digests"] != case0["digests"] for m in metas):
+        fails.append("the worker ranks' parameters differ")
+    backends = sorted({(m["backend"], m["device"], m["rank"], m["world"])
+                       for m in metas})
+    if backends != [("nccl", f"cuda:{r}", r, nproc) for r in range(nproc)]:
+        fails.append(f"worker groups {backends}")
+    ref_step_s = ref["step_s"]
+    del ref
+    torch.cuda.empty_cache()
+
+    # 2. the CLI under the launcher
+    data, hdr, logs = (os.path.join(root, d) for d in ("scene", "hdr",
+                                                        "log"))
+    write_shadow_scene(data, hdr, views=DP_LAUNCH_VIEWS)
+    run_dir = os.path.join(logs, "armadillo")
+    argv = ["--config", str(CONFIG), "--datadir", data, "--hdrdir", hdr,
+            "--basedir", logs, "--n_iters", "1000",
+            "--update_AlphaMask_list", f"[{DP_LAUNCH['mask']}]",
+            "--upsamp_list", f"[{DP_LAUNCH['upsample']}]",
+            "--vis_every", str(DP_LAUNCH["eval"] + 1), "--N_vis", "1",
+            "--save_iters", str(DP_LAUNCH["save"]),
+            "--progress_refresh_rate", "1", "--render_test", "0"]
+    saved = os.path.join(run_dir, f"ckpt_{DP_LAUNCH['save']}.npz")
+    stop = os.path.join(run_dir, "STOP")
+
+    def stop_after_save():
+        if os.path.exists(saved) and not os.path.exists(stop):
+            open(stop, "w").close()
+    child = {"argv": argv, "out": os.path.join(root, "cli_{rank}.json"),
+             "counts": os.path.join(root, "cli_counts_{rank}.json")}
+    cli_s = _torchrun(nproc, [str(Path(__file__).resolve()), "--dp-child",
+                              "dp_launch", json.dumps(child)],
+                      os.path.join(root, "cli.log"), on_poll=stop_after_save)
+    res = []
+    for r in range(nproc):
+        with open(child["out"].format(rank=r)) as f:
+            res.append(json.load(f))
+    files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                   for d, _, fs in os.walk(run_dir) for f in fs)
+    want = {saved, os.path.join(run_dir, "ckpt_final.npz")}
+    want = {os.path.relpath(x, run_dir) for x in want} | {
+        "config.txt", "metrics.jsonl", "imgs_vis/metrics_record.txt",
+        f"imgs_vis/nvs_with_radiance_field/{DP_LAUNCH['eval']:06d}_000.png"}
+    if not want <= set(files):
+        fails.append(f"missing from rank 0's run: {sorted(want - set(files))}")
+    recs = [json.loads(x) for x in
+            open(os.path.join(run_dir, "metrics.jsonl")).read().splitlines()
+            if '"train/total_loss"' in x]
+    steps = [x["step"] for x in recs]
+    evals = open(os.path.join(run_dir, "imgs_vis",
+                              "metrics_record.txt")).read().splitlines()
+    _, _, _, extra = load_checkpoint(os.path.join(run_dir,
+                                                  "ckpt_final.npz"),
+                                     device="cpu")
+    stopped = extra["train_state"]["iteration"]
+    if steps != list(range(len(steps))) or stopped != len(steps):
+        fails.append(f"metrics steps {steps[:3]}..{steps[-3:]}, final "
+                     f"checkpoint at {stopped}")
+    if not DP_LAUNCH["save"] < stopped < 1000:
+        fails.append(f"stopped at {stopped}")
+    if len(evals) != 1 or not evals[0].startswith(
+            f"Iteration:{DP_LAUNCH['eval']:06d}: "):
+        fails.append(f"evals {evals}")
+    if sorted(extra.get("rank_states", {})) != list(range(nproc)):
+        fails.append(f"rank states {sorted(extra.get('rank_states', {}))}")
+    if [x["result"] for x in res] != [{}] * nproc:
+        fails.append(f"results {[x['result'] for x in res]}")
+    launches = res[0]["launches"]
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched: {launches}")
+    elapsed = {x["step"]: x["train/elapsed_s"] for x in recs}
+
+    def median_ms(its):
+        d = [elapsed[i] - elapsed[i - 1] for i in its
+             if i in elapsed and i - 1 in elapsed]
+        return float(np.median(d)) * 1e3 if d else None
+    radiance_ms = median_ms(range(2, DP_LAUNCH["mask"]))
+    relight_ms = median_ms(range(DP_LAUNCH["upsample"] + 2,
+                                 DP_LAUNCH["eval"]))
+    eval_s = (elapsed.get(DP_LAUNCH["eval"] + 1, math.nan)
+              - elapsed.get(DP_LAUNCH["eval"], math.nan))
+    emit({"phase": "dp_launch", "ok": not fails, "fails": fails,
+          "ranks": nproc, "backend": metas[0]["backend"],
+          "worker": {"loss_rel_err": loss_rel,
+                     "grad_rel_err_max": max(g_rel.values()),
+                     "rays_per_rank": BATCH // nproc,
+                     "all_reduce_bytes": metas[0]["all_reduce"]["bytes"],
+                     "all_reduce_ms": [m["all_reduce"]["ms"] for m in metas],
+                     # the first step warms up
+                     "step_ms_median": float(np.median(case0["step_s"][1:]))
+                     * 1e3,
+                     "one_process_step_ms_median": float(np.median(
+                         ref_step_s[1:])) * 1e3,
+                     "peak_mem_gb": [m["cases"][0].get("peak_mem_gb")
+                                     for m in metas],
+                     "wall_s": worker_s},
+          "cli": {"schedule": DP_LAUNCH, "stopped_at": stopped,
+                  "wall_s": cli_s, "run_s": [x["run_s"] for x in res],
+                  "radiance_iter_ms_median": radiance_ms,
+                  "relight_iter_ms_median": relight_ms,
+                  "eval_iteration_s": eval_s, "evals": evals,
+                  "files": files, "launches": launches,
+                  "peak_mem_gb": [x["peak_mem_gb"] for x in res]},
+          "seconds": time.perf_counter() - t_phase,
+          "tol": {"loss_rel": 1e-5, "grad_rel_l2": 1e-3}})
+    check(not fails, f"dp_launch ({nproc} ranks): " + "; ".join(fails))
+    return launches, _read_counts(child["counts"].format(rank=0))
+
+
+def dp_child(role: str, args: dict) -> int:
+    """One rank of dp_gloo2 (the worker) or dp_run (reconstruction), with
+    its kernel launches counted by shape into ``args["counts"]``."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    shapes = {}
+    if role == "dp_launch":
+        # one rank of the CLI under the launcher: the group, the backend
+        # and the device all come from the launcher's environment
+        from tensoir_tpu_torch import train_tensoir
+        rank = int(os.environ["RANK"])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with kernel_calls("dp_launch", shapes):
+            result = train_tensoir.main(args["argv"])
+        torch.cuda.synchronize()
+        with open(args["out"].format(rank=rank), "w") as f:
+            json.dump({"result": result, "run_s": time.perf_counter() - t0,
+                       "launches": dict(LAUNCHES),
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 2 ** 30}, f)
+        with open(args["counts"].format(rank=rank), "w") as f:
+            json.dump([[list(k), n] for k, n in shapes.items()], f)
+        return 0
+    if role == "nccl_pair":
+        from tensoir_tpu_torch.parallel import multihost
+        dev = torch.device("cuda", 0)
+        multihost.initialize(init_method=args["rdzv"], world_size=2,
+                             rank=args["rank"], backend="nccl", device=dev)
+        try:
+            t = torch.ones(4, device=dev)
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            print(f"two NCCL ranks on {dev}: all_reduce gave {t.tolist()}",
+                  flush=True)
+        finally:
+            multihost.shutdown()
+        return 0
+    if role == "dp_gloo2":
+        from tensoir_tpu_torch.scripts import multihost_worker
+        with kernel_calls(args["path"], shapes):
+            multihost_worker.main(args["argv"])
+    else:
+        from tensoir_tpu_torch.models.field import grid_size_of
+        from tensoir_tpu_torch.parallel import multihost
+        from tensoir_tpu_torch.scripts.multihost_worker import digest
+        from tensoir_tpu_torch.train import loop
+        from tensoir_tpu_torch.train.optim import flatten
+        rank, log_dir = args["rank"], args["log_dir"]
+        dev = torch.device("cuda", 0)
+        multihost.initialize(init_method=args["rdzv"], world_size=2,
+                             rank=rank, backend="gloo", device=dev)
+        try:
+            ds = shadow_dataset()
+            hist = []
+
+            def progress(it, m):
+                hist.append(it)
+                if rank == 0 and it == DP_RUN["stop"]:
+                    open(os.path.join(log_dir, "STOP"), "w").close()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with kernel_calls("dp_run", shapes):
+                res = loop.reconstruction(dp_run_config(), ds,
+                                          log_dir=log_dir,
+                                          progress_cb=progress, device=dev)
+            torch.cuda.synchronize()
+            out = {"run_s": time.perf_counter() - t0, "iterations": hist,
+                   "launches": dict(LAUNCHES),
+                   "loss_last": res.metrics_history[-1]["total_loss"],
+                   "grid": list(grid_size_of(res.params)),
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                   / 2 ** 30,
+                   "digests": {k: digest(v) for k, v in
+                               flatten(res.params).items()}}
+            with open(args["out"], "w") as f:
+                json.dump(out, f)
+        finally:
+            multihost.shutdown()
+    with open(args["counts"], "w") as f:
+        json.dump([[list(k), n] for k, n in shapes.items()], f)
+    return 0
+
+
 def eval_lookup_cases(shapes) -> dict:
     """Both kernels at the eval's primary VM lookups, on random indices:
     the density at the culled march (C 64, N = chunk x march cap 256) and
@@ -2880,8 +3648,16 @@ PATH_CASES = {
                            for name in KERNEL_SOURCES},
     "multilight_general": {name: ("multilight_general", name)
                            for name in KERNEL_SOURCES},
+    # data-parallel: the grouped relight step on one NCCL rank, rank 0 of
+    # the two gloo ranks' steps, rank 0 of the two-rank training run
+    "dp_nccl": {name: ("dp_nccl", name) for name in KERNEL_SOURCES},
+    "dp_gloo2": {name: ("dp_gloo2", name) for name in KERNEL_SOURCES},
+    "dp_run": {name: ("dp_run", name) for name in KERNEL_SOURCES},
+    # rank 0 of the CLI under the launcher, one NCCL rank
+    "dp_launch": {name: ("dp_launch", name) for name in KERNEL_SOURCES},
 }
-NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general")
+NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general",
+             "dp_nccl", "dp_gloo2", "dp_run", "dp_launch")
 # the path whose numbers lead each kernel's summary entry: the CLI run
 # (training, the evals, render-only), the one path that runs all three
 # kernels (K2 does not launch on the relight path)
@@ -2929,8 +3705,11 @@ def kernel_summary(cases, launches, shapes, chunks) -> list:
 
 def main(argv) -> int:
     steps_only = argv == ["--steps"]
-    if argv and not steps_only:
-        print("usage: python3 chip_smoke.py [--steps]", file=sys.stderr)
+    launch_only = argv == ["--dp-launch"]
+    child = len(argv) == 3 and argv[0] == "--dp-child"
+    if argv and not (steps_only or launch_only or child):
+        print("usage: python3 chip_smoke.py [--steps | --dp-launch]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -2949,10 +3728,38 @@ def main(argv) -> int:
         return 2
     from tensoir_tpu_torch import resolve_device
     resolve_device("cuda")
+    if child:
+        return dp_child(argv[1], json.loads(argv[2]))
     t_start = time.perf_counter()
     streams, launches, shapes = {}, {}, {}
     with tempfile.TemporaryDirectory() as work:
+        if launch_only:
+            return _run_launch(work, t_start)
         return _run(steps_only, work, t_start, streams, launches, shapes)
+
+
+def _run_launch(work: str, t_start: float) -> int:
+    """--dp-launch: only dp_launch, on every card of the machine, then on
+    one card for comparison (when there are several)."""
+    import torch
+    n = torch.cuda.device_count()
+    try:
+        phase_build()
+        for nproc in sorted({n, 1}, reverse=True):
+            phase_dp_launch(work, nproc)
+    except SmokeFailure as exc:
+        emit({"ok": False, "failure": str(exc)})
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(" | ".join(smi.stdout.strip().splitlines()), flush=True)
+    print(f"# total seconds {time.perf_counter() - t_start:.1f}",
+          file=sys.stderr)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": n}})
+    return 0
 
 
 def _run(steps_only: bool, work: str, t_start: float, streams: dict,
@@ -2995,6 +3802,16 @@ def _run(steps_only: bool, work: str, t_start: float, streams: dict,
         counts_by_path, counts = phase_multilight_cli()
         launches.update(counts_by_path)
         shapes.update(counts)
+        torch.cuda.empty_cache()    # the gloo ranks share this card
+        for path, run in (("dp_nccl", phase_dp_nccl),
+                          ("dp_gloo2", phase_dp_gloo2),
+                          ("dp_run", phase_dp_run),
+                          ("dp_launch", lambda w: phase_dp_launch(w, 1))):
+            t0 = time.perf_counter()
+            launches[path], counts = run(work)
+            shapes.update(counts)
+            print(f"# {path} seconds {time.perf_counter() - t0:.1f}",
+                  file=sys.stderr, flush=True)
         cases = phase_kernels(streams, {
             path: {k: n for k, n in shapes.items() if k[0] == path}
             for path in ("train_run", "eval", "cli_run", "relight",

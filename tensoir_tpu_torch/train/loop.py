@@ -1,5 +1,6 @@
 """The training loop (port of tensoir_tpu.train.loop): ``reconstruction``
-with the coarse-to-fine phase schedule, in one process on one device.
+with the coarse-to-fine phase schedule, on one device, or data-parallel on
+one process per GPU under a launcher (``parallel``).
 
 Phase schedule, as in the JAX loop:
   * at update_AlphaMask_list[0]: update_alpha_mask -> shrink -> L1 switch ->
@@ -24,6 +25,21 @@ states, the ray pool is the one the interrupted run trained on, and the
 step is built as it stood. The JAX loop reseeds its sampler, filters the
 rays with the checkpoint's box, and builds the step at the resume
 iteration, which flips fast_march_start one step early there.
+
+Data-parallel (a process group, as the JAX loop's multi-process path):
+each rank keeps its contiguous ``host_shard`` of the filtered rays and
+samples ``batch_size // world`` of them per step (its sampler seeded
+``seed + rank``, its generator from ``host_key``); the step averages the
+gradients over the group; rank 0's params, scene and Adam state are
+broadcast at the start and after every shrink, upsample and mask refresh.
+Only rank 0 has a ``log_dir``, a logger, evals and checkpoints; every
+rank waits for each eval and checkpoint in a barrier (``multihost.barrier``,
+whose timeout is long enough for an eval), and the stop file is rank 0's
+observation, broadcast. A checkpoint holds every rank's generator and
+sampler states, so a resume of the same layout goes on exactly. The JAX
+loop skips its stop-file broadcast and stale-stop barrier on the ranks
+without a ``log_dir``, so that rank 0 waits in them for ranks that never
+come; here every rank takes part in both.
 """
 from __future__ import annotations
 
@@ -35,12 +51,15 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tensoir_tpu_torch.config import TensoIRConfig, field_config_from
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models import lifecycle as LC
 from tensoir_tpu_torch.models.field import FieldConfig, init_field_params
+from tensoir_tpu_torch.parallel import multihost
+from tensoir_tpu_torch.parallel.mesh import make_mesh, replicate
 from tensoir_tpu_torch.profiling import MetricsLogger, RayThroughputMeter
 from tensoir_tpu_torch.train.optim import decay_factor, make_optimizer
 from tensoir_tpu_torch.train.step import (LossWeights, StepStatic,
@@ -130,10 +149,6 @@ class TrainResult:
 def _refuse_unported(cfg: TensoIRConfig) -> None:
     """Options the port's step or loop cannot run yet: refused before the
     first step rather than at the first rebuild."""
-    if cfg.mesh_data > 1:
-        raise NotImplementedError(
-            f"mesh_data={cfg.mesh_data}: multi-GPU training is not ported "
-            f"yet (ROADMAP queue 1 item 7); the loop runs on one device")
     for name in ("march_group", "second_march_group"):
         if getattr(cfg, name) > 1:
             raise NotImplementedError(
@@ -157,11 +172,31 @@ def reconstruction(
     progress_cb: Optional[Callable[[int, Dict], None]] = None,
     device: DeviceLike = None,
 ) -> TrainResult:
-    """Train a TensoIR field on ``device`` (None: the card). ``dataset``
-    must satisfy the data contract (all_rays/all_rgbs/all_light_idx,
-    scene_bbox, near_far, white_bg)."""
+    """Train a TensoIR field on ``device`` (None: the card; under a
+    launcher, the rank's card). ``dataset`` must satisfy the data contract
+    (all_rays/all_rgbs/all_light_idx, scene_bbox, near_far, white_bg).
+
+    Under a process group (``parallel.multihost.initialize``) the run is
+    data-parallel over its ranks; ``cfg.mesh_data`` > 1 must then be the
+    group's size, and without a group it raises a ``ValueError``."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
+    # the data-parallel group: every launched rank (JAX: a mesh over every
+    # chip of every process)
+    mesh = (make_mesh(cfg.mesh_data if cfg.mesh_data > 1 else None)
+            if dist.is_initialized() or cfg.mesh_data > 1 else None)
+    grouped = mesh is not None and mesh.group is not None
+    rank, world = (mesh.rank, mesh.world) if grouped else (0, 1)
+    is_main = rank == 0
+    # every rank must agree on whether checkpoint events happen (their
+    # barriers are collective); only rank 0 writes
+    ckpt_requested = log_dir is not None
+    if not is_main:
+        log_dir = None
+    local_batch = cfg.batch_size // world
+    if local_batch * world != cfg.batch_size:
+        raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
+                         f"{world} ranks")
     n_iters = max_iters or cfg.n_iters
     # float32, as the JAX loop reads it: n_to_reso(128**3) is 128 per axis
     # on [-1.5, 1.5]^3 in float32, 127 in float64
@@ -172,9 +207,10 @@ def reconstruction(
     reso_cur = LC.n_to_reso(cfg.N_voxel_init, aabb)
     n_samples = min(cfg.nSamples, LC.cal_n_samples(reso_cur, cfg.step_ratio))
 
-    # the step's random draws (march jitter, background); the JAX loop
-    # splits a key per step instead
-    key = torch.Generator(device=dev).manual_seed(cfg.seed)
+    # the step's random draws (march jitter, background), this rank's own;
+    # the JAX loop splits a key per step instead
+    key = torch.Generator(device=dev).manual_seed(
+        multihost.host_key(cfg.seed))
     resume_state = None
     resume_opt_leaves = None
     resume_sampler = None
@@ -189,8 +225,11 @@ def reconstruction(
         if cfg.resume_full and "train_state" in ck_extra:
             resume_state = ck_extra["train_state"]
             resume_opt_leaves = ck_extra.get("opt_leaves")
-            resume_sampler = ck_extra.get("sampler_state")
-            state = ck_extra.get("torch_rng_state")
+            # a data-parallel run's checkpoint holds each rank's states
+            mine = (ck_extra.get("rank_states", {}).get(rank, {})
+                    if grouped else ck_extra)
+            resume_sampler = mine.get("sampler_state")
+            state = mine.get("torch_rng_state")
             if state is not None:
                 if state.numel() == key.get_state().numel():
                     key.set_state(state)
@@ -216,12 +255,16 @@ def reconstruction(
     all_lidx = np.asarray(dataset.all_light_idx, np.int32).reshape(-1)
 
     def ray_pool(box, seed):
-        """The rays that hit ``box``, on the device, and their sampler."""
+        """The rays that hit ``box`` (this rank's contiguous share of them
+        under a group), on the device, and their sampler (seeded ``seed +
+        rank``)."""
         keep = LC.filter_rays_bbox(all_rays, box)
-        pool = [torch.as_tensor(a[keep], device=dev)
-                for a in (all_rays, all_rgbs, all_lidx)]
-        return pool, SimpleSampler(int(keep.sum()), cfg.batch_size, dev,
-                                   seed=seed)
+        pool = [a[keep] for a in (all_rays, all_rgbs, all_lidx)]
+        if grouped:
+            pool = [multihost.host_shard(a)[0] for a in pool]
+        pool = [torch.as_tensor(a, device=dev) for a in pool]
+        return pool, SimpleSampler(len(pool[0]), local_batch, dev,
+                                   seed=seed + rank)
 
     (rays_f, rgbs_f, lidx_f), sampler = ray_pool(aabb, cfg.seed)
 
@@ -298,7 +341,7 @@ def reconstruction(
                                and not past_start)
                            else cfg.relight_ray_cap)
         cur_relight_cap[0] = eff_relight_cap
-        if cfg.relight_cap_start > 0 and relight \
+        if cfg.relight_cap_start > 0 and relight and is_main \
                 and not curriculum_warned[0]:
             # the JAX loop's two warnings; the second also fires, falsely,
             # when fast_march_end lifts the cap to full (kept, for parity)
@@ -372,7 +415,8 @@ def reconstruction(
             n_iters=n_iters, relight_start=relight_start,
             lr_factor=lr_factor,
             rgb_brdf_warmup_iters=cfg.rgb_brdf_warmup_iters)
-        return make_train_step(fcfg, optimizer, st, w, device=dev), opt_state
+        return (make_train_step(fcfg, optimizer, st, w, device=dev,
+                                mesh=mesh), opt_state)
 
     # a step built at iteration i serves the steps after it, so a resumed
     # run builds at the iteration before its first: resumed at
@@ -381,6 +425,14 @@ def reconstruction(
                                     at_iter=max(start_it - 1, 0))
     if resume_opt_leaves is not None:
         opt_state = restore_opt_state(opt_state, resume_opt_leaves, params)
+
+    def replicate_state() -> None:
+        """Rank 0's params, scene and Adam state on every rank."""
+        if grouped:
+            for tree in (params, scene, opt_state):
+                replicate(mesh, tree)
+
+    replicate_state()
 
     if log_dir:
         os.makedirs(log_dir, exist_ok=True)
@@ -412,10 +464,18 @@ def reconstruction(
             "lr_scale": float(cur_lr_scale)}}
 
     def save(name: str, it_next: int) -> None:
-        save_checkpoint(os.path.join(log_dir, name), fcfg, params, scene,
-                        extra=train_state_extra(it_next),
-                        opt_state=opt_state, rng_state=key.get_state(),
-                        sampler_state=sampler.state())
+        """Rank 0 writes ``name`` with every rank's generator and sampler
+        states; every rank then waits for it (collective)."""
+        ranks = None
+        if grouped:
+            ranks = [None] * world
+            dist.all_gather_object(ranks, (key.get_state(), sampler.state()))
+        if is_main:
+            save_checkpoint(os.path.join(log_dir, name), fcfg, params, scene,
+                            extra=train_state_extra(it_next),
+                            opt_state=opt_state, rng_state=key.get_state(),
+                            sampler_state=sampler.state(), rank_states=ranks)
+        multihost.barrier(f"ckpt {name}")
 
     history = []
     t_start = time.time()
@@ -423,13 +483,18 @@ def reconstruction(
     # $TENSOIR_STOP_FILE (else <log_dir>/STOP) appears, and still writes its
     # final checkpoint with the true stop iteration. A <log_dir>/STOP left
     # by an earlier run is cleared first; the env-var file is the caller's.
+    # Rank 0 looks and every rank learns its answer (agree), so all ranks
+    # stop at the same iteration
     stop_path = os.environ.get("TENSOIR_STOP_FILE", "")
-    if not stop_path and log_dir:
-        stop_path = os.path.join(log_dir, "STOP")
-        if os.path.exists(stop_path):
-            print(f"[loop] clearing stale stop file {stop_path} "
-                  "(predates this run)", flush=True)
-            os.remove(stop_path)
+    watch_stop = bool(stop_path) or ckpt_requested
+    if not stop_path and ckpt_requested:
+        if is_main:
+            stop_path = os.path.join(log_dir, "STOP")
+            if os.path.exists(stop_path):
+                print(f"[loop] clearing stale stop file {stop_path} "
+                      "(predates this run)", flush=True)
+                os.remove(stop_path)
+        multihost.barrier("stale_stop_clear")
     stopped_early = False
     it = start_it - 1  # a run resumed at its end runs no step
     for it in range(start_it, n_iters):
@@ -490,16 +555,21 @@ def reconstruction(
                             f"improvement for {it - auto_best_it} iters "
                             f"(ceiling {cfg.fast_march_auto_ceiling})")
                 if flip_why:
+                    # the metrics are the group's (reduced in the step), so
+                    # every rank flips at the same iteration
                     fast_flipped = True
-                    print(f"[loop] fast-march AUTO flip at iter {it}: "
-                          f"{flip_why}", flush=True)
+                    if is_main:
+                        print(f"[loop] fast-march AUTO flip at iter {it}: "
+                              f"{flip_why}", flush=True)
                     step_fn, _ = build_step(cur_lr_scale, at_iter=it,
                                             reuse_opt=opt_state)
-            if stop_path and os.path.exists(stop_path):
+            if watch_stop and multihost.agree(
+                    is_main and os.path.exists(stop_path)):
                 stopped_early = True
-                print(f"[loop] stop file {stop_path} seen at iter {it}; "
-                      "stopping early (final checkpoint still written)",
-                      flush=True)
+                if is_main:
+                    print(f"[loop] stop file {stop_path} seen at iter {it}; "
+                          "stopping early (final checkpoint still written)",
+                          flush=True)
                 break
 
         # ---- phase schedule ----
@@ -508,6 +578,11 @@ def reconstruction(
             reso_mask = tuple(min(r, 256) for r in reso_cur)
             scene, new_aabb = LC.update_alpha_mask(fcfg, params, scene,
                                                    reso_mask)
+            if grouped:
+                # rank 0's mask and box, so that every rank shrinks alike
+                replicate(mesh, scene)
+                box = {"aabb": torch.as_tensor(new_aabb, device=dev)}
+                new_aabb = replicate(mesh, box)["aabb"].cpu().numpy()
             if it == update_am_list[0]:
                 params, scene = LC.shrink(fcfg, params, scene, new_aabb)
                 l1_weight = cfg.L1_weight_rest
@@ -520,6 +595,7 @@ def reconstruction(
                 step_fn, opt_state = build_step(cur_lr_scale, at_iter=it)
                 rebuilt_this_it = True
                 meter = make_meter()   # relighting changes rays per step
+                replicate_state()
             # the reference refilters only outside NDC mode
             if (not cfg.ndc_ray and len(update_am_list) > 1
                     and it == update_am_list[1]):
@@ -536,6 +612,7 @@ def reconstruction(
                 cfg.lr_decay_target_ratio ** (it / n_iters))
             step_fn, opt_state = build_step(cur_lr_scale, at_iter=it)
             rebuilt_this_it = True
+            replicate_state()
 
         if rebuilt_this_it or it in update_am_list:
             # an event perturbs the density: the plateau patience starts over
@@ -551,21 +628,26 @@ def reconstruction(
 
         if (relight and cfg.fast_march_end > 0
                 and it == cfg.fast_march_end and not rebuilt_this_it):
-            print(f"[loop] exact-finish flip at iter {it}: fast-march "
-                  "knobs off, full relight cap retained", flush=True)
+            if is_main:
+                print(f"[loop] exact-finish flip at iter {it}: fast-march "
+                      "knobs off, full relight cap retained", flush=True)
             step_fn, _ = build_step(cur_lr_scale, at_iter=it,
                                     reuse_opt=opt_state)
 
         if eval_fn is not None and relight and cfg.vis_every > 0 \
                 and it % cfg.vis_every == cfg.vis_every - 1:
-            eval_fn(fcfg, params, scene, it, n_samples, logger=logger)
+            if is_main:
+                eval_fn(fcfg, params, scene, it, n_samples, logger=logger)
+            # the other ranks wait here, not in the next step's all_reduce,
+            # whose timeout an eval can outlast
+            multihost.barrier("eval")
             meter.start()   # the eval's time is not training throughput
 
-        if log_dir and cfg.save_iters > 0 and it > 0 \
+        if ckpt_requested and cfg.save_iters > 0 and it > 0 \
                 and it % cfg.save_iters == 0:
             save(f"ckpt_{it}.npz", it + 1)
 
-    if log_dir:
+    if ckpt_requested:
         save("ckpt_final.npz", it + 1 if stopped_early else n_iters)
         if logger:
             logger.close()

@@ -5,6 +5,8 @@ tensoir_tpu.train.step, for the radiance and the relight phase).
 config drives both (``bench.py``'s fast-knob step included); the knobs of
 paths the port does not have yet raise in the renderer. The step runs
 eagerly on ``device``: forward, backward, then the in-place Adam update.
+With a ``parallel.Mesh`` of several processes, each rank renders its own
+rays and the gradients are averaged over the group before the update.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch.profiler import record_function
 
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.models import field as F
+from tensoir_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 from tensoir_tpu_torch.render.train_render import render_train_batch
 from tensoir_tpu_torch.train import losses as L
 from tensoir_tpu_torch.train.optim import GroupAdam, flatten
@@ -193,7 +196,8 @@ def _relight_losses(ret, rgb_gt, step: int, w: LossWeights, metrics):
 
 
 def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
-                    w: LossWeights, device: DeviceLike = None):
+                    w: LossWeights, device: DeviceLike = None,
+                    mesh: Optional[Mesh] = None):
     """Build the step: ``step_fn(params, opt_state, scene, batch, key, step)
     -> (params, opt_state, metrics)``.
 
@@ -202,8 +206,19 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
     ``torch.Generator`` on ``device`` (or None when ``st.deterministic``).
     Parameters and Adam moments are updated in place and returned;
     metrics are detached 0-d tensors on the device (reading them syncs).
+
+    With ``mesh`` (a process group; JAX's ``shard_map`` over ``data``),
+    ``batch`` is this rank's rows and ``key`` this rank's generator (seeded
+    by ``parallel.multihost.host_key``). The rank's gradients and metrics
+    then go through ONE ``all_reduce`` of a flat bucket: the group's mean
+    (``pmean``), except ``n_acc_masked``, which is summed; the same Adam
+    update runs on every rank. The caps (``relight_ray_cap``, ``app_cap``,
+    the pair caps) apply to the rank's own rays, as in JAX, whose static
+    knobs are the same on every shard. Without a group the mesh changes
+    nothing.
     """
     dev = resolve_device(device)
+    grouped = mesh is not None and mesh.group is not None
 
     def step_fn(params, opt_state, scene, batch, key, step: int):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -221,11 +236,29 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
         # JAX, so its moments decay and the group counts stay in step
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        if grouped:
+            with record_function("all_reduce"):
+                grads, metrics = _reduce(mesh, grads, metrics)
         with record_function("adam"):
             opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return step_fn
+
+
+def _reduce(mesh: Mesh, grads: Dict[str, torch.Tensor],
+            metrics: Dict[str, torch.Tensor]):
+    """The group's mean of every gradient and metric, the sum of
+    ``n_acc_masked`` (a count; JAX psums it too), in one ``all_reduce``."""
+    summed = [k for k in metrics if k == "n_acc_masked"]
+    averaged = [k for k in metrics if k != "n_acc_masked"]
+    means, sums = all_reduce_mean(
+        mesh, [*grads.values(), *(metrics[k].detach() for k in averaged)],
+        [metrics[k].detach() for k in summed])
+    g = dict(zip(grads, means[:len(grads)]))
+    m = dict(zip(averaged, means[len(grads):]))
+    m.update(zip(summed, sums))
+    return g, {k: m[k] for k in metrics}
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:

@@ -6,6 +6,11 @@ Usage:
   python -m tensoir_tpu_torch.train_tensoir --config configs/single_light/armadillo.txt
   python -m tensoir_tpu_torch.train_tensoir --config ... --render_only 1 --render_test 1 --ckpt <ckpt_final.npz>
   python -m tensoir_tpu_torch.train_tensoir --config ... --export_mesh 1 --ckpt <ckpt_final.npz>
+  python -m torch.distributed.run --nproc_per_node N -m tensoir_tpu_torch.train_tensoir --config ...
+
+Under the launcher (one process per GPU) the run trains data-parallel over
+the N cards, each on ``batch_size // N`` rays of its own share per step;
+only rank 0 writes the logs, checkpoints and renders.
 
 Any config key can be overridden as ``--key value``. It runs on the card;
 ``main(argv, device="cpu")`` runs it on the CPU from Python (there is no
@@ -30,6 +35,7 @@ from tensoir_tpu_torch.config import (TensoIRConfig, _coerce, _parse_value,
                                       load_config)
 from tensoir_tpu_torch.data import get_dataset
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
+from tensoir_tpu_torch.parallel import multihost
 
 
 def parse_cli(argv=None) -> TensoIRConfig:
@@ -122,10 +128,23 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     (None: the card). Returns each final evaluation's metrics under the
     name of its output directory (``imgs_test_all``, ...), for
     ``--render_path`` the frames written under ``imgs_path_all``, and for
-    ``--export_mesh`` the PLY's path under ``mesh``."""
+    ``--export_mesh`` the PLY's path under ``mesh``.
+
+    Under a launcher it joins the process group first (a no-op without
+    one, or when the caller made the group) and leaves the group it made
+    at the end; only rank 0 renders and exports, and returns what they
+    made (the other ranks return ``{}``)."""
     cfg = parse_cli(argv)
     dev = resolve_device(device)
+    owns_group = multihost.initialize(device=dev)
+    try:
+        return _main(cfg, dev)
+    finally:
+        if owns_group:
+            multihost.shutdown()
 
+
+def _main(cfg: TensoIRConfig, dev) -> dict:
     from tensoir_tpu_torch.models.field import grid_size_of
     from tensoir_tpu_torch.models.lifecycle import cal_n_samples
     from tensoir_tpu_torch.render.eval import evaluation_iter
@@ -133,16 +152,19 @@ def main(argv=None, device: DeviceLike = None) -> dict:
 
     logfolder = os.path.join(cfg.basedir, cfg.expname)
     out = {}
+    is_main = multihost.process_index() == 0
 
-    if cfg.export_mesh:
+    if cfg.export_mesh and is_main:
         from tensoir_tpu_torch.scripts.export_mesh import export_checkpoint
         out["mesh"], _, _ = export_checkpoint(cfg.ckpt, 0.005, dev)
         print(f"mesh written to {out['mesh']}")
-        if not (cfg.render_only or cfg.render_test):
-            return out
+    if cfg.export_mesh and not (cfg.render_only or cfg.render_test):
+        return out
 
     if cfg.render_only and (cfg.render_test or cfg.render_train
                             or cfg.render_path):
+        if not is_main:
+            return out
         fcfg, params, scene, _ = load_checkpoint(cfg.ckpt, device=dev)
         n_samples = min(cfg.nSamples,
                         cal_n_samples(grid_size_of(params), cfg.step_ratio))
@@ -189,8 +211,10 @@ def main(argv=None, device: DeviceLike = None) -> dict:
         progress_cb=lambda it, m: print(
             f"it {it:06d} psnr {m.get('psnr', 0):.2f} "
             f"loss {m.get('total_loss', 0):.5f}", flush=True)
-        if it % (cfg.progress_refresh_rate * 10) == 0 else None,
+        if it % (cfg.progress_refresh_rate * 10) == 0 and is_main else None,
         device=dev)
+    if not is_main:
+        return out
 
     if cfg.render_test:
         # general multi-light: each learned light on its own, into its own

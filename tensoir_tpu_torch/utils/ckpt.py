@@ -15,6 +15,10 @@ One ``.npz`` holds:
   generator's state and the ray sampler's (JSON), so that a resumed run
   goes on with the same draws. JAX's loader skips both keys; JAX's own
   ``train/rng_key`` cannot seed a ``torch.Generator`` and is ignored here;
+* ``train/rank_<r>/torch_rng_state`` and ``train/rank_<r>/sampler_state``:
+  in a checkpoint of a data-parallel run, each rank's two states (rank 0
+  writes them all), which a resume of that run hands back to each rank; a
+  one-device load ignores them;
 * ``__tensoir_header__``: JSON of the ``FieldConfig`` and ``extra``.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ _HEADER_KEY = "__tensoir_header__"
 RNG_KEY = "train/torch_rng_state"
 SAMPLER_KEY = "train/sampler_state"
 _JAX_RNG_KEY = "train/rng_key"
+_RANK_PREFIX = "train/rank_"
 
 
 def _np(v) -> np.ndarray:
@@ -119,10 +124,12 @@ def save_checkpoint(path: str, cfg: FieldConfig, params: Dict, scene: Dict,
                     extra: Optional[Dict[str, Any]] = None,
                     opt_state: Optional[Dict] = None,
                     rng_state: Optional[torch.Tensor] = None,
-                    sampler_state: Optional[Dict] = None):
+                    sampler_state: Optional[Dict] = None,
+                    rank_states: Optional[List[Tuple]] = None):
     """Write the field (tensors or arrays), and optionally the ``GroupAdam``
     state, the step generator's state (``Generator.get_state()``) and the
-    ray sampler's (``SimpleSampler.state()``)."""
+    ray sampler's (``SimpleSampler.state()``); ``rank_states`` holds each
+    rank's (generator state, sampler state) of a data-parallel run."""
     arrays: Dict[str, np.ndarray] = {}
     _flatten(params, "params", arrays)
     if opt_state is not None:
@@ -132,6 +139,9 @@ def save_checkpoint(path: str, cfg: FieldConfig, params: Dict, scene: Dict,
         arrays[RNG_KEY] = _np(rng_state)
     if sampler_state is not None:
         arrays[SAMPLER_KEY] = _json_bytes(sampler_state)
+    for r, (rng, sampler) in enumerate(rank_states or ()):
+        arrays[f"{_RANK_PREFIX}{r}/torch_rng_state"] = _np(rng)
+        arrays[f"{_RANK_PREFIX}{r}/sampler_state"] = _json_bytes(sampler)
 
     scene_np = {k: _np(v) for k, v in scene.items()
                 if k != "alpha_volume_packed"}  # derived; rebuilt on load
@@ -151,7 +161,9 @@ def load_checkpoint(path: str, device: DeviceLike = None
                     ) -> Tuple[FieldConfig, Dict, Dict, Dict]:
     """(cfg, params, scene, extra), tensors on ``device``. ``extra`` holds
     the header's extra, plus ``opt_leaves`` (optax order),
-    ``torch_rng_state`` and ``sampler_state`` when the file has them."""
+    ``torch_rng_state`` and ``sampler_state`` when the file has them, and
+    ``rank_states`` ({rank: {"torch_rng_state", "sampler_state"}}) when it
+    comes from a data-parallel run."""
     dev = resolve_device(device)
     with np.load(path if path.endswith(".npz") else path + ".npz",
                  allow_pickle=False) as data:
@@ -196,4 +208,11 @@ def load_checkpoint(path: str, device: DeviceLike = None
         print(f"[ckpt] {path}: ignoring the JAX package's {_JAX_RNG_KEY} "
               "(it cannot seed a torch.Generator); a resumed run draws "
               "from its seeded generator", flush=True)
+    for key, arr in files.items():
+        if key.startswith(_RANK_PREFIX):
+            rank, name = key[len(_RANK_PREFIX):].split("/")
+            entry = extra.setdefault("rank_states", {}).setdefault(
+                int(rank), {})
+            entry[name] = (torch.from_numpy(arr) if name == "torch_rng_state"
+                           else json.loads(bytes(arr).decode()))
     return cfg, params, scene, extra

@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX, of tensoir_tpu, or of
 PIL, imageio and cv2 (the machine with the card has none of the last
-three), and runs a radiance, a relight and a fast-knob relight training
+three), and runs a radiance step, the same step under a one-rank gloo
+process group (``parallel``), a relight and a fast-knob relight training
 step, a tiny relighting benchmark on a relighting test set written to
 disk, a 3-iteration training run through an alpha-mask and shrink event
 that writes and reads back its checkpoint, and a tiny run of the training
@@ -49,6 +50,22 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(1), 0)
     assert math.isfinite(float(m["total_loss"]))
     assert state["count"]["spatial"] == 1
+    # data-parallel: the same step under a one-rank gloo group
+    import tempfile
+    import tensoir_tpu_torch.scripts.multihost_worker  # noqa: F401
+    from tensoir_tpu_torch.parallel import make_mesh, multihost
+    with tempfile.TemporaryDirectory() as tmp:
+        assert multihost.initialize(init_method=f"file://{tmp}/rdzv",
+                                    world_size=1, rank=0, device="cpu")
+        step_dp = make_train_step(cfg, opt, StepStatic(
+            n_samples=32, is_relight=False, white_bg=True, app_cap=8),
+            LossWeights(l1=8e-5, tv_density=0.05), device="cpu",
+            mesh=make_mesh(1))
+        params, state, m = step_dp(params, state, scene, batch,
+                                   torch.Generator().manual_seed(4), 1)
+        assert math.isfinite(float(m["total_loss"]))
+        assert state["count"]["spatial"] == 2
+        multihost.shutdown()
     # the relight phase: alpha mask, culled march, BRDF, derived normals,
     # baked secondary march
     scene, _ = update_alpha_mask(cfg, params, scene, (16, 16, 16))
@@ -193,6 +210,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "tensoir_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the data-parallel layer and its worker are among them
+    for part in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "scripts/multihost_worker.py"):
+        assert ROOT / "tensoir_tpu_torch" / part in files, part
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -24,7 +24,8 @@ on each side: after 12 steps a few density elements are up to 0.09 apart.
   arrays: equal.
 Port-only checks: a ``resume_full`` run of 6 + 6 iterations equals one of
 12 (bit for bit, with the step's randomness on), the stop file, and the
-options the port refuses.
+options the port refuses (``mesh_data`` > 1 in one process, which names
+the launcher; the data-parallel runs are in test_torch_parallel.py).
 """
 import dataclasses
 import json
@@ -335,12 +336,17 @@ def test_stop_file_ends_the_run_with_a_final_checkpoint(tmp_path,
     assert (log_dir / "config.txt").exists()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_data=2), dict(march_group=2),
-                                dict(second_march_group=2)],
-                         ids=["mesh_data", "march_group",
-                              "second_march_group"])
-def test_unported_options_are_refused_at_the_start(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,exc,match", [
+    # several ranks need the launcher: one process cannot make them
+    (dict(mesh_data=2), ValueError, "torch.distributed.run --nproc_per_node"),
+    (dict(march_group=2), NotImplementedError, "ROADMAP"),
+    (dict(second_march_group=2), NotImplementedError, "ROADMAP")],
+    ids=["mesh_data", "march_group", "second_march_group"])
+def test_unported_options_are_refused_at_the_start(kw, exc, match, tmp_path,
+                                                   monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(exc, match=match):
         TL.reconstruction(_port_cfg(**kw), _dataset(),
                           log_dir=str(tmp_path), device="cpu")
     assert not os.listdir(tmp_path)
