@@ -7,6 +7,8 @@
                                      # trees against each other); it ends
                                      # after them without the summary or
                                      # the last line
+    python3 chip_smoke.py --variants # build and the three variants_*
+                                     # phases only; ends the same way
 
 Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
@@ -142,6 +144,27 @@ Phases, one JSON line each, in this order:
                ckpt_final, the final render_test of every light: median
                step ms and launches per step per phase, run seconds, PSNR
                per light; every kernel must launch
+  variants_step_parity
+               one deterministic radiance step of each model variant
+               (TensorCP, the stacked TensorVM, the MLP_PE, MLP, SH and RGB
+               shaders, bf16, NDC) and one relight step of each (TensorCP,
+               stacked, residue and ground-truth normals, the importance and
+               equal-area samplers on directions drawn once on the CPU,
+               bf16, NDC) at a reduced size, card vs CPU: loss and every
+               gradient; and the importance sampler itself, card vs CPU
+  variants_train
+               the relight step at relight_train's full width and grid for
+               TensorCP at TensoRF's published widths (96/288), the stacked
+               TensorVM (16/48), and the default VM with importance-sampled
+               directions and with bf16 compute: step ms, device-busy ms,
+               K1/K2 launches by shape, peak memory
+  variants_cli python -m tensoir_tpu_torch.train_tensoir on the armadillo
+               config with --model_name TensorCP (96/288) and TensorVM on a
+               scene it writes: a mask with the shrink, an upsample to
+               300^3, relight iterations, one 200 x 200 test view,
+               ckpt_final; render-only from it must equal the run's
+               metrics bit for bit. `python3 chip_smoke.py --variants`
+               runs only the build and these three phases
   dp_nccl      data-parallel (parallel/): one process in a one-rank NCCL
                group, 3 deterministic relight steps of relight_train's
                field at full width through make_train_step(mesh=...)
@@ -186,8 +209,10 @@ Phases, one JSON line each, in this order:
                at the busiest shape of each kernel in the training run,
                the eval, the CLI run, the relight runs (the visibility
                march's density lookup, the fast route's baked grid), the
-               mesh export, the multi-light CLI runs and the data-parallel
-               phases, and at the eval's density and appearance lookups
+               mesh export, the multi-light CLI runs, the data-parallel
+               phases and the variants' steps and CLI runs (per
+               decomposition), and at the eval's density and appearance
+               lookups
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -616,11 +641,11 @@ def relight_sizes(cfg):
     return n_vox, reso, min(cfg.nSamples, cal_n_samples(reso, cfg.step_ratio))
 
 
-def step_knobs(cfg, n_samples, deterministic, relight=False, **relight_kw):
+def step_knobs(cfg, n_samples, deterministic, relight=False, **overrides):
     """(StepStatic fields, LossWeights fields, make_optimizer's rates) of
     the step train/loop.py builds for the radiance phase, or with
-    ``relight`` for the relight phase (``relight_kw`` overrides its
-    StepStatic fields, to cut the size)."""
+    ``relight`` for the relight phase (``overrides`` replace StepStatic
+    fields, to cut the size or to pick a variant)."""
     from tensoir_tpu_torch.train.optim import decay_factor
     lr_factor = decay_factor(cfg.lr_decay_target_ratio, cfg.lr_decay_iters,
                              cfg.n_iters)
@@ -635,7 +660,7 @@ def step_knobs(cfg, n_samples, deterministic, relight=False, **relight_kw):
                   second_n_sample=cfg.second_nSample,
                   second_near=cfg.second_near, second_far=cfg.second_far,
                   secondary_tile=cfg.secondary_tile)
-        kw.update(relight_kw)
+        kw.update(overrides)
         st = dict(n_samples=n_samples, is_relight=True, white_bg=True,
                   app_cap=cfg.app_cap_per_ray, deterministic=deterministic,
                   **kw)
@@ -650,7 +675,7 @@ def step_knobs(cfg, n_samples, deterministic, relight=False, **relight_kw):
     else:
         st = dict(n_samples=n_samples, is_relight=False, white_bg=True,
                   app_cap=cfg.app_cap_per_ray, march_cap=0,
-                  deterministic=deterministic)
+                  deterministic=deterministic, **overrides)
         w = dict(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_inital,
                  tv_density=cfg.TV_weight_density,
                  tv_app=cfg.TV_weight_app, lr_factor=lr_factor,
@@ -678,10 +703,38 @@ def make_step(fcfg, cfg, n_samples, deterministic, device, relight=False,
 def field(fcfg, reso, seed, device):
     import torch
     from tensoir_tpu_torch.models.field import init_field_params
-    from tensoir_tpu_torch.utils.bench_scene import seed_solid_blob
     gen = torch.Generator().manual_seed(seed)
     params, scene = init_field_params(gen, fcfg, reso, AABB, device=device)
-    return seed_solid_blob(params), scene
+    return seed_blob(fcfg, params), scene
+
+
+def seed_blob(fcfg, params):
+    """The solid blob of ``bench_scene.seed_solid_blob`` (amplitude 8,
+    sharpness 0.1) on the decomposition's density factors: VM's planes and
+    lines, the first density channel of the stacked tensors, or CP's three
+    lines, each bumped by 3 (a product of three bumps, 27 at the centre
+    against VM's 24)."""
+    import torch
+    from tensoir_tpu_torch.utils.bench_scene import seed_solid_blob
+    if fcfg.decomp == "vm":
+        return seed_solid_blob(params)
+
+    def bump(n):
+        z = np.linspace(-1, 1, n)
+        return torch.from_numpy(np.exp(-(z ** 2) / 0.10).astype(np.float32))
+
+    with torch.no_grad():
+        for i in range(3):
+            if fcfg.decomp == "vm_stacked":
+                a = fcfg.app_n_comp[i]
+                g, ln = params[f"stack_plane_{i}"], params[f"stack_line_{i}"]
+                g[..., a] += 8.0 * torch.outer(bump(g.shape[0]),
+                                               bump(g.shape[1])).to(g.device)
+                ln[:, a] += bump(ln.shape[0]).to(ln.device)
+            else:
+                ln = params[f"density_line_{i}"]
+                ln[:, 0] += 3.0 * bump(ln.shape[0]).to(ln.device)
+    return params
 
 
 def batch_of(n: int, device, lights: int = 1):
@@ -840,10 +893,10 @@ RANGES = ("forward", "backward", "adam", "primary", "derived_normals",
           "brdf_render", "bake", "secondary_march", "visibility")
 
 
-def emit_breakdown(phase: str, run_step, step_ms: float) -> None:
+def emit_breakdown(phase: str, run_step, step_ms: float) -> dict:
     """Where one step's device time goes, by CUDA kernel and by the step's
     own ranges, and the share of the timed step the card sat idle.
-    Informational: not a pass/fail."""
+    Informational: not a pass/fail. Returns the line it emits."""
     import torch
     try:
         from torch.autograd import DeviceType
@@ -867,7 +920,7 @@ def emit_breakdown(phase: str, run_step, step_ms: float) -> None:
                           "host_ms": e.cpu_time_total / 1e3}
                   for e in events
                   if e.key in RANGES and e.device_type == DeviceType.CPU}
-        emit({"phase": phase, "device_busy_ms": busy_ms,
+        line = {"phase": phase, "device_busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / step_ms, "ranges": ranges,
               "top_kernels": [
                   {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
@@ -878,9 +931,11 @@ def emit_breakdown(phase: str, run_step, step_ms: float) -> None:
                   {"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3,
                    "calls": e.count}
                   for e in sorted(host, key=lambda e: -e.self_cpu_time_total)
-                  [:15]]})
+                  [:15]]}
     except Exception as exc:  # noqa: BLE001  diagnostic only
-        emit({"phase": phase, "measured": False, "error": repr(exc)})
+        line = {"phase": phase, "measured": False, "error": repr(exc)}
+    emit(line)
+    return line
 
 
 def masked_field(fcfg, reso, seed, device):
@@ -949,24 +1004,26 @@ def _to(tree, dev):
 
 
 def _step_on(dev, params0, scene0, make, n_rays, step, bakes, record=None,
-             replay=None, lights: int = 1):
+             replay=None, lights: int = 1, extra=None):
     """One deterministic step on ``dev`` from a copy of the CPU field: (loss,
-    n_acc_masked, parameters, gradients, the tables ``bakes(params, scene)``
-    makes before the step), all on the CPU. ``make(dev)`` builds (optimizer,
-    step function); ``record`` / ``replay`` as in _pair_choice; the rays go
-    round ``lights`` lights."""
+    n_acc_masked (0 for a radiance step), parameters, gradients, the tables
+    ``bakes(params, scene)`` makes before the step), all on the CPU.
+    ``make(dev)`` builds (optimizer, step function); ``record`` /
+    ``replay`` as in _pair_choice; the rays go round ``lights`` lights;
+    ``extra`` adds CPU tensors to the batch."""
     from tensoir_tpu_torch.train.optim import flatten
     # a copy each: the step updates its parameters in place
     params, scene = _to(params0, dev), _to(scene0, dev)
     tables = [b.cpu() for b in bakes(params, scene)]
     opt, step_fn = make(dev)
     state = opt.init(params)
+    batch = batch_of(n_rays, dev, lights)
+    batch.update({k: v.to(dev) for k, v in (extra or {}).items()})
     with _pair_choice(record, replay):
-        params, state, m = step_fn(params, state, scene,
-                                   batch_of(n_rays, dev, lights), None, step)
+        params, state, m = step_fn(params, state, scene, batch, None, step)
     # Adam's first moment after one step is (1 - b1) * grad
     grads = {k: v.cpu() / 0.1 for k, v in state["mu"].items()}
-    return (float(m["total_loss"]), float(m["n_acc_masked"]),
+    return (float(m["total_loss"]), float(m.get("n_acc_masked", 0.0)),
             {k: v.detach().cpu() for k, v in flatten(params).items()},
             grads, tables)
 
@@ -2682,6 +2739,388 @@ def phase_multilight_cli():
     return launches, shapes
 
 
+# the model variants: the field and step knobs of each variant
+# the parity phase runs, as (FieldConfig overrides, StepStatic overrides)
+VARIANT_RADIANCE = {
+    "cp": (dict(decomp="cp"), {}),
+    "vm_stacked": (dict(decomp="vm_stacked"), {}),
+    "MLP_PE": (dict(shading_mode="MLP_PE"), {}),
+    "MLP": (dict(shading_mode="MLP"), {}),
+    "SH": (dict(shading_mode="SH", app_dim=27), {}),
+    "RGB": (dict(shading_mode="RGB", app_dim=3), {}),
+    "bf16": (dict(compute_dtype="bfloat16"), {}),
+    "ndc": ({}, dict(ndc_ray=True)),
+}
+VARIANT_RELIGHT = {
+    "cp": (dict(decomp="cp"), {}),
+    "vm_stacked": (dict(decomp="vm_stacked"), {}),
+    "residue_prediction": (dict(normals_kind="residue_prediction"), {}),
+    "gt_normals": (dict(normals_kind="gt_normals"), {}),
+    "importance_sample": ({}, dict(sample_method="importance_sample")),
+    "stratifed_sample_equal_areas": (
+        {}, dict(sample_method="stratifed_sample_equal_areas")),
+    "bf16": (dict(compute_dtype="bfloat16"), {}),
+    "ndc": ({}, dict(ndc_ray=True)),
+}
+# TensoRF's published TensorCP widths (its README: --model_name TensorCP
+# --n_lamb_sigma [96] --n_lamb_sh [288]), per axis as the JAX package reads
+# them
+CP_WIDTHS = dict(density_n_comp=(96, 96, 96), app_n_comp=(288, 288, 288))
+# the full-width relight steps of variants_train: (FieldConfig overrides,
+# StepStatic overrides) on relight_train's 158^3 grid
+VARIANT_TRAIN = {
+    "cp": (dict(decomp="cp", **CP_WIDTHS), {}),
+    "vm_stacked": (dict(decomp="vm_stacked"), {}),
+    "importance": ({}, dict(sample_method="importance_sample")),
+    "bf16": (dict(compute_dtype="bfloat16"), {}),
+}
+# the CLI's --model_name of each decomposition
+DECOMP_OF = {"TensorCP": "cp", "TensorVM": "vm_stacked"}
+VARIANT_TRAIN_STEPS = 5
+VARIANT_CLI_VIEWS = (("train", 2, 800), ("test", 1, 200))
+VARIANT_CLI_RADIANCE = 80
+VARIANT_CLI_MODELS = {
+    "TensorCP": ["--n_lamb_sigma", "[96,96,96]", "--n_lamb_sh",
+                 "[288,288,288]"],
+    "TensorVM": [],
+}
+
+
+@contextlib.contextmanager
+def _replayed_light_dirs(dirs_pdf):
+    """``brdf_render.incident_light_dirs`` handing out the CPU-made
+    (dirs [L, 3], pdf [L, 1] or None) on the caller's device, so that a
+    step on the card and one on the CPU integrate over the same sampled
+    directions."""
+    from tensoir_tpu_torch.render import brdf_render
+    real = brdf_render.incident_light_dirs
+    dirs, pdf = dirs_pdf
+
+    def replay(cfg, sample_method, key, params=None, gt_envmap=None,
+               device=None):
+        return dirs.to(device), None if pdf is None else pdf.to(device)
+
+    brdf_render.incident_light_dirs = replay
+    try:
+        yield
+    finally:
+        brdf_render.incident_light_dirs = real
+
+
+def _sampler_agreement(fcfg, params0) -> dict:
+    """The importance sampler of the learned light on the card against the
+    CPU, from the same CPU-drawn uniforms (a 128 x 256 jittered grid, then
+    one draw per direction): the share of draws that pick the same texel,
+    and for the others how far the uniform lay from a step of the CPU's
+    CDF (a rounding of the tables apart, it must be within 1e-6)."""
+    import torch
+    from tensoir_tpu_torch.models import lighting
+    n = fcfg.envmap_h * fcfg.envmap_w
+    out = {}
+    for dev in ("cuda", "cpu"):
+        light = {"lgt_sgs": params0["lgt_sgs"].to(dev)}
+        d, _, pdf = lighting.gen_light_incident_dirs_importance(
+            light, fcfg, torch.Generator().manual_seed(21), n)
+        out[dev] = (d.cpu(), pdf.cpu())
+    gen = torch.Generator().manual_seed(21)
+    u_jit = [torch.rand((128, 256), generator=gen) for _ in range(2)]
+    u = torch.rand((n,), generator=gen)
+    env = lighting.get_light_rgbs(
+        {"lgt_sgs": params0["lgt_sgs"]}, fcfg,
+        lighting.stratified_dirs(None, 128, 256, draws=u_jit))[0]
+    sin_t = np.sin(np.linspace(0.5 / 128, np.pi - 0.5 / 128, 128))
+    pdf = env.double().sum(-1).reshape(128, 256).numpy() * sin_t[:, None]
+    cdf = np.cumsum(pdf / pdf.sum())
+    same = (out["cuda"][0] - out["cpu"][0]).abs().amax(-1) < 1e-5
+    gaps = [float(np.abs(cdf - float(u[i])).min())
+            for i in torch.nonzero(~same).flatten().tolist()]
+    return {"draws": n, "same_texel_share": float(same.float().mean()),
+            "flip_uniform_to_cdf_step_max": max(gaps, default=0.0),
+            "pdf_max_rel_err": float(
+                ((out["cuda"][1] - out["cpu"][1]).abs()[same]
+                 / out["cpu"][1][same]).max())}
+
+
+def phase_variants_step_parity():
+    """One deterministic radiance step of each variant of VARIANT_RADIANCE
+    and one relight step of each of VARIANT_RELIGHT at a reduced size
+    (grid 48, 128 samples, 256 rays, 64 relit, 8x16 light directions, tile
+    4096, the pair cap lifted), card (kernels) vs CPU (plain versions),
+    from the same blob field made on the CPU (masked for the relight
+    steps). The importance and equal-area steps integrate over directions
+    drawn once on the CPU with their own sampler and handed to both;
+    gt_normals reads the same random normals on both. Tolerances: loss
+    1e-4 relative and every gradient 1e-3 relative in the L2 norm, as
+    relight_step_parity holds its lifted variant; bf16 loss 1e-3 and
+    gradients 1e-2: each device rounds its own f32 operands, which differ
+    in their last bits, to bf16, so a few round to neighbouring bf16
+    values (7.8e-3 apart relative). Also the importance sampler itself on
+    the card against the CPU (_sampler_agreement): at least 99 % of the
+    draws on the same texel, the others within 1e-6 of a CDF step."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.render.brdf_render import incident_light_dirs
+    cfg, _, _ = slice_sizes()
+    base = dataclasses.replace(C.field_config_from(cfg, NEAR_FAR),
+                               envmap_h=8, envmap_w=16)
+    reso, n_samples, n_rays = (48, 48, 48), 128, 256
+    relight_knobs = dict(relight_ray_cap=64, secondary_tile=4096,
+                         march_cap=64, app_pair_frac=1.0)
+    res, fails, sampler = {}, [], None
+    cases = [("radiance", k, v) for k, v in VARIANT_RADIANCE.items()] + [
+        ("relight", k, v) for k, v in VARIANT_RELIGHT.items()]
+    for phase, name, (f_kw, st_kw) in cases:
+        relight = phase == "relight"
+        fcfg = dataclasses.replace(base, **f_kw)
+        if relight:
+            params0, scene0 = masked_field(fcfg, reso, seed=5, device="cpu")
+        else:
+            params0, scene0 = field(fcfg, reso, seed=5, device="cpu")
+        extra, dirs_pdf = None, None
+        if fcfg.normals_kind == "gt_normals":
+            n = torch.randn((n_rays, 3), generator=torch.Generator()
+                            .manual_seed(6))
+            extra = {"normal_gt": n / n.norm(dim=-1, keepdim=True)}
+        method = st_kw.get("sample_method")
+        if method is not None:
+            dirs_pdf = incident_light_dirs(
+                fcfg, method, torch.Generator().manual_seed(7),
+                params=params0, device="cpu")
+            if method == "importance_sample":
+                sampler = _sampler_agreement(fcfg, params0)
+        knobs = dict(st_kw, **relight_knobs) if relight else st_kw
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with (_replayed_light_dirs(dirs_pdf) if dirs_pdf is not None
+                  else contextlib.nullcontext()):
+                runs[dev] = _step_on(
+                    dev, params0, scene0,
+                    lambda d: make_step(fcfg, cfg, n_samples, True, d,
+                                        relight=relight, **knobs),
+                    n_rays, cfg.update_AlphaMask_list[0] if relight else 0,
+                    lambda p, s: [], extra=extra)
+        (l_gpu, n_acc, _, g_gpu, _), (l_cpu, _, _, g_cpu, _) = (
+            runs["cuda"], runs["cpu"])
+        bf16 = fcfg.compute_dtype == "bfloat16"
+        loss_tol, grad_tol = (1e-3, 1e-2) if bf16 else (1e-4, 1e-3)
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        g_rel = _grad_rel_err(g_gpu, g_cpu)
+        key = f"{phase}/{name}"
+        res[key] = {"loss_cuda": l_gpu, "loss_cpu": l_cpu,
+                    "loss_rel_err": rel, "n_acc_masked": n_acc,
+                    "grad_rel_err_max": max(g_rel.values()),
+                    "worst_grad": max(g_rel, key=g_rel.get),
+                    "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol}}
+        if not (math.isfinite(l_gpu) and rel <= loss_tol):
+            fails.append(f"{key} loss {l_gpu} vs {l_cpu}: {rel}")
+        over = {k: v for k, v in g_rel.items() if v > grad_tol}
+        if over:
+            fails.append(f"{key} gradients over {grad_tol}: {over}")
+        if relight and not 0 < n_acc < n_rays:
+            fails.append(f"{key}: {n_acc} of {n_rays} rays relit")
+    if sampler is None or sampler["same_texel_share"] < 0.99 or \
+            sampler["flip_uniform_to_cdf_step_max"] > 1e-6:
+        fails.append(f"importance sampler card vs CPU: {sampler}")
+    emit({"phase": "variants_step_parity", "ok": not fails, "fails": fails,
+          "variants": res, "importance_sampler": sampler,
+          "reso": list(reso), "n_rays": n_rays})
+    check(not fails, "variants_step_parity: " + "; ".join(fails))
+
+
+def phase_variants_train():
+    """The relight step at full width on relight_train's grid (158^3, 547
+    samples, march cap 192, 1024 relit rays, 16x32 light directions, tiles
+    of 16384) for each of VARIANT_TRAIN: TensorCP at TensoRF's published
+    widths (96/288 per axis), the stacked TensorVM at armadillo's 16/48,
+    and the default VM with importance-sampled light directions and with
+    bf16 compute; each on the blob masked by update_alpha_mask, 2 warm-up
+    steps, VARIANT_TRAIN_STEPS timed steps (launch counts zeroed just
+    before them, and by shape), the peak memory from the warm-up on, then
+    one profiled step (device-busy ms). CP must launch K1-bf16 (its baked
+    sigma grid and alpha mask; it has no plane gather, so no K1-f32 and no
+    K2), the others all three kernels. Launches are kept per decomposition
+    (paths variants_train_cp, _vm_stacked and _vm, the last the importance
+    and bf16 steps together). Returns (launch counts per path, launches by
+    shape)."""
+    import torch
+    from tensoir_tpu_torch import config as C
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    cfg, _, _ = slice_sizes()
+    n_vox, reso, n_samples = relight_sizes(cfg)
+    launches, shapes, fails = {}, {}, []
+    for name, (f_kw, st_kw) in VARIANT_TRAIN.items():
+        fcfg = dataclasses.replace(C.field_config_from(cfg, NEAR_FAR), **f_kw)
+        path = f"variants_train_{fcfg.decomp}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, scene = masked_field(fcfg, reso, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        mask_s = time.perf_counter() - t0
+        opt, step_fn = make_step(fcfg, cfg, n_samples, False, "cuda",
+                                 relight=True, **st_kw)
+        state = opt.init(params)
+        batch = batch_of(BATCH, "cuda")
+        key = torch.Generator(device="cuda").manual_seed(1)
+        it = cfg.update_AlphaMask_list[0]
+        for _ in range(2):
+            params, state, m = step_fn(params, state, scene, batch, key, it)
+            it += 1
+        torch.cuda.synchronize()
+        mets, counts = [], {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with kernel_calls(path, counts):
+            for _ in range(VARIANT_TRAIN_STEPS):
+                params, state, m = step_fn(params, state, scene, batch, key,
+                                           it)
+                mets.append(m)
+                it += 1
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / VARIANT_TRAIN_STEPS * 1e3
+        mine_launches = dict(LAUNCHES)
+        launches[path] = {k: v + launches.get(path, {}).get(k, 0)
+                          for k, v in mine_launches.items()}
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(x["total_loss"]) for x in mets]
+        brk = emit_breakdown(f"{path}_breakdown", lambda: step_fn(
+            params, state, scene, batch, key, it), step_ms)
+        res = {"phase": "variants_train", "variant": name,
+               "decomp": fcfg.decomp, "density_n_comp":
+               list(fcfg.density_n_comp), "app_n_comp": list(fcfg.app_n_comp),
+               "compute_dtype": fcfg.compute_dtype,
+               "sample_method": st_kw.get("sample_method",
+                                          cfg.light_sample_train),
+               "grid": list(reso), "n_samples": n_samples, "batch": BATCH,
+               "n_params": sum(v.numel() for k, v in params.items()
+                               if isinstance(v, torch.Tensor)),
+               "alpha_mask_s": mask_s, "step_ms": step_ms,
+               "device_busy_ms": brk.get("device_busy_ms"),
+               "idle_share": brk.get("idle_share"), "losses": losses,
+               "n_acc_masked": float(mets[-1]["n_acc_masked"]),
+               "launches": mine_launches,
+               "launches_by_shape": by_shape(counts, VARIANT_TRAIN_STEPS),
+               "peak_mem_gb": peak}
+        want = (("row_gather_bf16",) if fcfg.decomp == "cp"
+                else tuple(mine_launches))
+        mine = []
+        if not all(math.isfinite(x) for x in losses):
+            mine.append(f"non-finite loss {losses}")
+        if not all(mine_launches[k] > 0 for k in want):
+            mine.append(f"a kernel of the path was not launched: "
+                        f"{mine_launches}")
+        res["ok"] = not mine
+        emit(res)
+        fails += [f"{name}: {f}" for f in mine]
+        del params, state, scene, opt, step_fn, m, mets
+        torch.cuda.empty_cache()
+    check(not fails, "variants_train: " + "; ".join(fails))
+    return launches, shapes
+
+
+def phase_variants_cli():
+    """``python -m tensoir_tpu_torch.train_tensoir`` on
+    configs/single_light/armadillo.txt, in this process, with
+    ``--model_name TensorCP`` at TensoRF's published widths (96/288 per
+    axis) and then ``--model_name TensorVM`` (armadillo's 16/48), on one
+    rotated-lights scene written to a temporary directory
+    (VARIANT_CLI_VIEWS): VARIANT_CLI_RADIANCE radiance iterations, the
+    mask with the shrink, the upsample to 300^3 three iterations later,
+    relight iterations to VARIANT_CLI_RADIANCE + 8, ckpt_final and the
+    final render_test of the 200 x 200 view; then render-only from
+    ckpt_final, whose metrics must equal the run's bit for bit. Launch
+    counts from 0 before each run to the end of its render-only run; CP
+    must launch K1-bf16, TensorVM every kernel. Returns (launch counts per
+    path, launches by shape)."""
+    import torch
+    from tensoir_tpu_torch import train_tensoir
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.train import loop
+    from tensoir_tpu_torch.utils.ckpt import load_checkpoint
+    n_iters = VARIANT_CLI_RADIANCE + 8
+    launches, shapes, fails = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        data, hdr = os.path.join(tmp, "scene"), os.path.join(tmp, "hdr")
+        t0 = time.perf_counter()
+        write_shadow_scene(data, hdr, views=VARIANT_CLI_VIEWS)
+        write_s = time.perf_counter() - t0
+        for model, widths in VARIANT_CLI_MODELS.items():
+            logs = os.path.join(tmp, model)
+            argv = ["--config", str(CONFIG), "--datadir", data, "--hdrdir",
+                    hdr, "--basedir", logs, "--model_name", model, *widths,
+                    "--n_iters", str(n_iters), "--update_AlphaMask_list",
+                    f"[{VARIANT_CLI_RADIANCE}]", "--upsamp_list",
+                    f"[{VARIANT_CLI_RADIANCE + 3}]", "--N_vis", "0",
+                    "--test_number", "1"]
+            path = f"variants_cli_{DECOMP_OF[model]}"
+            log = {"events": [], "steps": []}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with _run_probe(loop, log), contextlib.redirect_stdout(
+                    sys.stderr):
+                with kernel_calls(path, shapes):
+                    trained = train_tensoir.main(argv)
+                    torch.cuda.synchronize()
+                    run_s = time.perf_counter() - t0
+                    ckpt = os.path.join(logs, "armadillo",
+                                        "ckpt_final.npz")
+                    fcfg, params, _, _ = load_checkpoint(ckpt)
+                    t1 = time.perf_counter()
+                    again = train_tensoir.main(argv + [
+                        "--render_only", "1", "--render_test", "1",
+                        "--ckpt", ckpt])
+                    torch.cuda.synchronize()
+                    render_only_s = time.perf_counter() - t1
+            decomp = fcfg.decomp
+            launches[path] = dict(LAUNCHES)
+            segs = _segments(log["steps"])
+            final = trained.get("imgs_test_all")
+            res = {"phase": "variants_cli", "model_name": model,
+                   "decomp": decomp, "widths": widths,
+                   "factors": {k: list(v.shape) for k, v in params.items()
+                               if k.startswith(("density", "app", "stack"))},
+                   "views": [list(v) for v in VARIANT_CLI_VIEWS],
+                   "n_iters": n_iters, "scene_write_s": write_s,
+                   "run_s": run_s, "render_only_s": render_only_s,
+                   "segments": segs,
+                   "events": [e for e in log["events"]
+                              if e["event"] != "rebuild"],
+                   "final_render_test": final,
+                   "render_only_test": again.get("imgs_test_all"),
+                   "launches": launches[path],
+                   "peak_mem_gb": torch.cuda.max_memory_allocated()
+                   / 2 ** 30}
+            mine = []
+            if decomp != DECOMP_OF[model]:
+                mine.append(f"checkpoint decomposition {decomp}")
+            if final is None or final != again.get("imgs_test_all"):
+                mine.append(f"render-only metrics {res['render_only_test']}"
+                            f" differ from the run's {final}")
+            elif not math.isfinite(final["psnr_nvs_brdf"]):
+                mine.append(f"metrics {final}")
+            for name, its in (("update_alpha_mask", [VARIANT_CLI_RADIANCE]),
+                              ("shrink", [VARIANT_CLI_RADIANCE]),
+                              ("upsample", [VARIANT_CLI_RADIANCE + 3])):
+                got = [e["it"] for e in log["events"] if e["event"] == name]
+                if got != its:
+                    mine.append(f"{name} at {got}, not {its}")
+            want = (("row_gather_bf16",) if decomp == "cp"
+                    else tuple(launches[path]))
+            if not all(launches[path][k] > 0 for k in want):
+                mine.append(f"a kernel of the path was not launched: "
+                            f"{launches[path]}")
+            res["ok"] = not mine
+            emit(res)
+            fails += [f"{model}: {f}" for f in mine]
+    check(not fails, "variants_cli: " + "; ".join(fails))
+    return launches, shapes
+
+
 def phase_mesh_export(ckpt: str):
     """``python -m tensoir_tpu_torch.scripts.export_mesh`` on train_run's
     ckpt_final, in this process: the dense alpha at the field's own grid
@@ -3655,9 +4094,23 @@ PATH_CASES = {
     "dp_run": {name: ("dp_run", name) for name in KERNEL_SOURCES},
     # rank 0 of the CLI under the launcher, one NCCL rank
     "dp_launch": {name: ("dp_launch", name) for name in KERNEL_SOURCES},
+    # the model variants: TensorCP has no plane gather (K1-f32 and K2 do
+    # not launch: only its baked sigma grid and alpha mask, on K1-bf16);
+    # the stacked TensorVM's sliced planes and the VM importance and bf16
+    # steps run all three
+    **{f"variants_{kind}_cp": {
+        "row_gather": None,
+        "row_gather_bf16": (f"variants_{kind}_cp", "row_gather_bf16"),
+        "row_scatter_add": None} for kind in ("train", "cli")},
+    **{path: {name: (path, name) for name in KERNEL_SOURCES}
+       for path in ("variants_train_vm_stacked", "variants_train_vm",
+                    "variants_cli_vm_stacked")},
 }
+VARIANT_PATHS = ("variants_train_cp", "variants_train_vm_stacked",
+                 "variants_train_vm", "variants_cli_cp",
+                 "variants_cli_vm_stacked")
 NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general",
-             "dp_nccl", "dp_gloo2", "dp_run", "dp_launch")
+             "dp_nccl", "dp_gloo2", "dp_run", "dp_launch", *VARIANT_PATHS)
 # the path whose numbers lead each kernel's summary entry: the CLI run
 # (training, the evals, render-only), the one path that runs all three
 # kernels (K2 does not launch on the relight path)
@@ -3706,10 +4159,11 @@ def kernel_summary(cases, launches, shapes, chunks) -> list:
 def main(argv) -> int:
     steps_only = argv == ["--steps"]
     launch_only = argv == ["--dp-launch"]
+    variants_only = argv == ["--variants"]
     child = len(argv) == 3 and argv[0] == "--dp-child"
-    if argv and not (steps_only or launch_only or child):
-        print("usage: python3 chip_smoke.py [--steps | --dp-launch]",
-              file=sys.stderr)
+    if argv and not (steps_only or launch_only or variants_only or child):
+        print("usage: python3 chip_smoke.py [--steps | --dp-launch | "
+              "--variants]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -3735,7 +4189,42 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as work:
         if launch_only:
             return _run_launch(work, t_start)
+        if variants_only:
+            return _run_variants(t_start)
         return _run(steps_only, work, t_start, streams, launches, shapes)
+
+
+def _run_variants(t_start: float) -> int:
+    """--variants: the build and the three phases of the model variants
+    only; it ends after them without the summary or the last line."""
+    try:
+        phase_build()
+        _variant_phases()
+    except SmokeFailure as exc:
+        emit({"ok": False, "failure": str(exc)})
+        return 1
+    print(f"# total seconds {time.perf_counter() - t_start:.1f}",
+          file=sys.stderr)
+    return 0
+
+
+def _variant_phases():
+    """variants_step_parity, variants_train, variants_cli: (launch counts
+    per path, launches by shape), each phase's seconds on stderr."""
+    launches, shapes = {}, {}
+    t0 = time.perf_counter()
+    phase_variants_step_parity()
+    print(f"# variants_step_parity seconds {time.perf_counter() - t0:.1f}",
+          file=sys.stderr, flush=True)
+    for name, run in (("variants_train", phase_variants_train),
+                      ("variants_cli", phase_variants_cli)):
+        t0 = time.perf_counter()
+        counts_by_path, counts = run()
+        launches.update(counts_by_path)
+        shapes.update(counts)
+        print(f"# {name} seconds {time.perf_counter() - t0:.1f}",
+              file=sys.stderr, flush=True)
+    return launches, shapes
 
 
 def _run_launch(work: str, t_start: float) -> int:
@@ -3800,6 +4289,9 @@ def _run(steps_only: bool, work: str, t_start: float, streams: dict,
         phase_lpips()
         phase_multilight_step_parity()
         counts_by_path, counts = phase_multilight_cli()
+        launches.update(counts_by_path)
+        shapes.update(counts)
+        counts_by_path, counts = _variant_phases()
         launches.update(counts_by_path)
         shapes.update(counts)
         torch.cuda.empty_cache()    # the gloo ranks share this card

@@ -1,19 +1,29 @@
-"""The TensoIR radiance field, VM decomposition (port of
-tensoir_tpu.models.field: config, init, the queries of the training step,
-derived normals, the alpha mask, the baked sigma grid (optionally on
-factors resized to a coarser grid) with its coarse occupancy, and the baked
-per-light appearance grid).
+"""The TensoIR radiance field (port of tensoir_tpu.models.field: config,
+init, the queries of the training step, derived normals, the alpha mask,
+the baked sigma grid (optionally on factors resized to a coarser grid) with
+its coarse occupancy, and the baked per-light appearance grid).
 
+Three decompositions, as in the JAX package:
+* ``vm``: per axis a plane [H, W, R] and a line [D, R], for density and
+  for appearance (``density_plane_{i}``, ``density_line_{i}``, ``app_*``);
+* ``cp``: lines only, the feature the product of the three axes' line
+  lookups (``density_line_{i}``, ``app_line_{i}``);
+* ``vm_stacked``: the legacy TensorVM, one plane and one line per axis
+  holding both fields, channels [app (A) | density (D)]
+  (``stack_plane_{i}``, ``stack_line_{i}``), read through slices.
 Parameters and scene are flat dicts of tensors keyed exactly like the JAX
-pytrees (``density_plane_{i}`` [H, W, R], ``density_line_{i}`` [D, R],
-``app_*``, ``light_line``, ``basis_mat``, MLP dicts, ``lgt_sgs``), so a
+pytrees (also ``light_line``, ``basis_mat``, MLP dicts, ``lgt_sgs``), so a
 JAX-initialized field carries over with ``weights.params_from_numpy``.
-Every VM plane lookup goes through the corner-packed row gather K1 on f32
-rows; the corner-packed trilinear lookups (alpha mask, baked sigma grid,
-baked appearance grid) go through K1 on bf16 rows.
+Every plane lookup goes through the corner-packed row gather K1 on f32
+rows (a stacked slice is packed into a contiguous table first); line
+lookups are products with a two-tap matrix; the corner-packed trilinear
+lookups (alpha mask, baked sigma grid, baked appearance grid) go through
+K1 on bf16 rows. ``compute_dtype`` ``bfloat16`` rounds the operands of the
+basis and MLP products to bf16 and keeps their results in f32.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -24,6 +34,7 @@ import torch.nn.functional as Fn
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.kernels import row_gather
 from tensoir_tpu_torch.models import lighting, mlps
+from tensoir_tpu_torch.models.mlps import dot
 from tensoir_tpu_torch.ops.interp import (bilerp_plane_packed,
                                           lerp_line_matmul,
                                           resize_bilinear_align_corners,
@@ -40,7 +51,7 @@ class FieldConfig:
     density_n_comp: Tuple[int, int, int] = (16, 16, 16)
     app_n_comp: Tuple[int, int, int] = (48, 48, 48)
     app_dim: int = 27
-    decomp: str = "vm"  # 'vm' only in the port so far
+    decomp: str = "vm"  # 'vm' | 'cp' | 'vm_stacked' (legacy TensorVM)
     shading_mode: str = "MLP_Fea"
     normals_kind: str = "derived_plus_predicted"
     light_kind: str = "sg"
@@ -65,17 +76,12 @@ class FieldConfig:
     compute_dtype: str = "float32"
 
 
-def _require_vm(cfg: FieldConfig) -> None:
-    if cfg.decomp != "vm":
-        raise NotImplementedError(
-            f"decomp={cfg.decomp!r}: the port has only 'vm' so far")
-
-
 def grid_size_of(params: Dict) -> Tuple[int, int, int]:
     """(X, Y, Z) grid resolution from the line shapes."""
-    return (params["density_line_2"].shape[0],
-            params["density_line_1"].shape[0],
-            params["density_line_0"].shape[0])
+    pre = "stack" if "stack_line_0" in params else "density"
+    return (params[f"{pre}_line_2"].shape[0],
+            params[f"{pre}_line_1"].shape[0],
+            params[f"{pre}_line_0"].shape[0])
 
 
 def init_field_params(gen: torch.Generator, cfg: FieldConfig, grid_size,
@@ -83,40 +89,67 @@ def init_field_params(gen: torch.Generator, cfg: FieldConfig, grid_size,
     """(params, scene) dicts on ``device``, drawn from ``gen`` on the CPU.
 
     Same keys, shapes and distributions as the JAX package's
-    ``init_field_params`` (VM factors 0.1 * randn, light_line randn, basis
-    U(+-1/sqrt(sum Ra)), MLPs, SG lights); the numbers differ, because the
-    generators do. The scene starts with the permissive 2^3 alpha mask,
-    and holds ``gt_envmap`` [H, W, 3], the dataset's probe, when given (the
-    light of ``light_kind='gt'``).
+    ``init_field_params`` (VM factors and stacked planes and lines 0.1 *
+    randn, CP lines 0.2 * randn; light_line randn, or ones for
+    ``vm_stacked``, whose legacy model has no light factor; basis
+    U(+-1/sqrt(n)) with n = sum Ra, or Ra[0] for CP, whose feature is one
+    product; the MLPs of the shading mode and normals kind; SG lights); the
+    numbers differ, because the generators do. The scene starts with the
+    permissive 2^3 alpha mask, and holds ``gt_envmap`` [H, W, 3], the
+    dataset's probe, when given (the light of ``light_kind='gt'``).
     """
-    _require_vm(cfg)
+    if cfg.decomp not in ("vm", "cp", "vm_stacked"):
+        raise ValueError(f"unknown decomp {cfg.decomp!r}")
     dev = resolve_device(device)
     params: Dict = {}
-    for name, ncomp in (("density", cfg.density_n_comp),
-                        ("app", cfg.app_n_comp)):
+    if cfg.decomp == "vm_stacked":
         for i in range(3):
             m0, m1 = MAT_MODE[i]
-            params[f"{name}_plane_{i}"] = 0.1 * torch.randn(
-                (grid_size[m1], grid_size[m0], ncomp[i]), generator=gen)
-            params[f"{name}_line_{i}"] = 0.1 * torch.randn(
-                (grid_size[VEC_MODE[i]], ncomp[i]), generator=gen)
-    sum_ra = sum(cfg.app_n_comp)
+            c = cfg.app_n_comp[i] + cfg.density_n_comp[i]
+            params[f"stack_plane_{i}"] = 0.1 * torch.randn(
+                (grid_size[m1], grid_size[m0], c), generator=gen)
+            params[f"stack_line_{i}"] = 0.1 * torch.randn(
+                (grid_size[VEC_MODE[i]], c), generator=gen)
+    else:
+        scale = 0.1 if cfg.decomp == "vm" else 0.2
+        for name, ncomp in (("density", cfg.density_n_comp),
+                            ("app", cfg.app_n_comp)):
+            for i in range(3):
+                m0, m1 = MAT_MODE[i]
+                if cfg.decomp == "vm":
+                    params[f"{name}_plane_{i}"] = 0.1 * torch.randn(
+                        (grid_size[m1], grid_size[m0], ncomp[i]),
+                        generator=gen)
+                params[f"{name}_line_{i}"] = scale * torch.randn(
+                    (grid_size[VEC_MODE[i]], ncomp[i]), generator=gen)
+    sum_ra = (cfg.app_n_comp[0] if cfg.decomp == "cp"
+              else sum(cfg.app_n_comp))
     bound = 1.0 / np.sqrt(sum_ra)
     params["basis_mat"] = (torch.rand((sum_ra, cfg.app_dim), generator=gen)
                            * 2.0 - 1.0) * bound
-    params["light_line"] = torch.randn((cfg.light_num, sum_ra), generator=gen)
-    if cfg.shading_mode != "MLP_Fea":
-        raise NotImplementedError(
-            f"shading_mode={cfg.shading_mode!r}: the port has only MLP_Fea")
-    params["render_mlp"] = mlps.init_mlp(
-        gen, mlps.render_fea_in_dim(cfg.app_dim, cfg.view_pe, cfg.fea_pe),
-        cfg.feature_c, 3)
+    if cfg.decomp == "vm_stacked":
+        params["light_line"] = torch.ones((cfg.light_num, sum_ra))
+    else:
+        params["light_line"] = torch.randn((cfg.light_num, sum_ra),
+                                           generator=gen)
+    if cfg.shading_mode == "MLP_Fea":
+        in_dim = mlps.render_fea_in_dim(cfg.app_dim, cfg.view_pe, cfg.fea_pe)
+    elif cfg.shading_mode == "MLP_PE":
+        in_dim = mlps.render_pe_in_dim(cfg.app_dim, cfg.view_pe, cfg.pos_pe)
+    elif cfg.shading_mode == "MLP":
+        in_dim = mlps.render_plain_in_dim(cfg.app_dim, cfg.view_pe)
+    else:   # SH and RGB shade the features themselves
+        in_dim = 0
+    if in_dim:
+        params["render_mlp"] = mlps.init_mlp(gen, in_dim, cfg.feature_c, 3)
     brdf_in = mlps.brdf_pe_fea_in_dim(cfg.app_dim, cfg.pos_pe, cfg.fea_pe)
     params["brdf_mlp"] = mlps.init_mlp(gen, brdf_in, cfg.feature_c, 4)
     if cfg.normals_kind in ("purely_predicted", "derived_plus_predicted"):
         params["normal_mlp"] = mlps.init_mlp(gen, brdf_in, cfg.feature_c, 3)
     elif cfg.normals_kind == "residue_prediction":
-        raise NotImplementedError("normals_kind='residue_prediction'")
+        params["normal_mlp"] = mlps.init_mlp(
+            gen, mlps.normal_residue_in_dim(cfg.app_dim, cfg.pos_pe,
+                                            cfg.fea_pe), cfg.feature_c, 3)
     if cfg.light_kind == "sg":
         if cfg.per_light_sg:
             params["lgt_sgs"] = torch.stack(
@@ -170,16 +203,45 @@ def step_size(aabb, grid_size: Tuple[int, int, int], step_ratio: float):
 # ------------------------------------------------------------------- queries
 
 def density_factors(cfg: FieldConfig, params: Dict, i: int):
-    return params[f"density_plane_{i}"], params[f"density_line_{i}"]
+    """(plane [H, W, D] or None for CP, line [R, D]) density factors of
+    axis i; ``vm_stacked`` reads the last D channels of the shared
+    tensors (views, not copies)."""
+    if cfg.decomp == "vm_stacked":
+        a = cfg.app_n_comp[i]
+        return (params[f"stack_plane_{i}"][..., a:],
+                params[f"stack_line_{i}"][..., a:])
+    return params.get(f"density_plane_{i}"), params[f"density_line_{i}"]
 
 
 def app_factors(cfg: FieldConfig, params: Dict, i: int):
-    return params[f"app_plane_{i}"], params[f"app_line_{i}"]
+    """(plane [H, W, A] or None for CP, line [R, A]) appearance factors of
+    axis i; ``vm_stacked`` reads the first A channels."""
+    if cfg.decomp == "vm_stacked":
+        a = cfg.app_n_comp[i]
+        return (params[f"stack_plane_{i}"][..., :a],
+                params[f"stack_line_{i}"][..., :a])
+    return params.get(f"app_plane_{i}"), params[f"app_line_{i}"]
+
+
+def _cp_product(params: Dict, name: str, coords) -> torch.Tensor:
+    """CP's feature [..., R]: the product of the three line lookups, each
+    with the taps of the JAX package's gathering ``lerp_line`` (its value
+    and gradients, the linear extension below the first node included) in
+    the product form."""
+    return (lerp_line_matmul(params[f"{name}_line_0"],
+                             coords[..., VEC_MODE[0]], extrapolate=True)
+            * lerp_line_matmul(params[f"{name}_line_1"],
+                               coords[..., VEC_MODE[1]], extrapolate=True)
+            * lerp_line_matmul(params[f"{name}_line_2"],
+                               coords[..., VEC_MODE[2]], extrapolate=True))
 
 
 def density_feature(cfg: FieldConfig, params: Dict, coords):
-    """sigma feature = sum_i <plane_i(c), line_i(c)>, coords [..., 3]."""
-    _require_vm(cfg)
+    """sigma feature at normalized coords [..., 3]: sum_i <plane_i(c),
+    line_i(c)> (VM), or the sum over components of the product of the
+    three line lookups (CP)."""
+    if cfg.decomp == "cp":
+        return _cp_product(params, "density", coords).sum(-1)
     total = coords.new_zeros(coords.shape[:-1])
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -191,8 +253,10 @@ def density_feature(cfg: FieldConfig, params: Dict, coords):
 
 
 def _app_raw_feature(cfg: FieldConfig, params: Dict, coords):
-    """Concatenated per-axis appearance features [..., sum(Ra)]."""
-    _require_vm(cfg)
+    """Concatenated per-axis appearance features [..., sum(Ra)] (VM), or
+    the product of the three line lookups [..., Ra] (CP)."""
+    if cfg.decomp == "cp":
+        return _cp_product(params, "app", coords)
     feats = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -212,37 +276,29 @@ def light_rows(light_line: torch.Tensor, light_idx) -> torch.Tensor:
     return torch.matmul(onehot.to(light_line.dtype), light_line)
 
 
-def _require_f32(cfg: FieldConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port computes in f32")
-
-
 def both_features(cfg: FieldConfig, params: Dict, coords, light_idx):
     """(radiance_feat, intrinsic_feat): basis(pl * light_line[light_idx])
-    and basis(pl * mean_l light_line[l])."""
-    _require_f32(cfg)
+    and basis(pl * mean_l light_line[l]), the products in
+    ``cfg.compute_dtype``."""
     pl = _app_raw_feature(cfg, params, coords)
     lc = light_rows(params["light_line"], light_idx)
     mean_lc = params["light_line"].mean(0)
-    basis = params["basis_mat"]
-    return torch.matmul(pl * lc, basis), torch.matmul(pl * mean_lc, basis)
+    basis, dt = params["basis_mat"], cfg.compute_dtype
+    return dot(pl * lc, basis, dt), dot(pl * mean_lc, basis, dt)
 
 
 def app_feature(cfg: FieldConfig, params: Dict, coords, light_idx):
     """Radiance feature only."""
-    _require_f32(cfg)
     pl = _app_raw_feature(cfg, params, coords)
-    return torch.matmul(pl * light_rows(params["light_line"], light_idx),
-                        params["basis_mat"])
+    return dot(pl * light_rows(params["light_line"], light_idx),
+               params["basis_mat"], cfg.compute_dtype)
 
 
 def intrin_feature(cfg: FieldConfig, params: Dict, coords):
     """Intrinsic (light-averaged) feature only."""
-    _require_f32(cfg)
     pl = _app_raw_feature(cfg, params, coords)
-    return torch.matmul(pl * params["light_line"].mean(0),
-                        params["basis_mat"])
+    return dot(pl * params["light_line"].mean(0), params["basis_mat"],
+               cfg.compute_dtype)
 
 
 def feature2density(cfg: FieldConfig, feat):
@@ -274,9 +330,13 @@ def derived_normals(cfg: FieldConfig, params: Dict, coords):
 # ------------------------------------------------------------- baked density
 
 def bake_sigma_feature_grid(cfg: FieldConfig, params: Dict) -> torch.Tensor:
-    """The VM sigma feature on its own grid nodes, [Z, Y, X]: per axis an
-    outer product of a plane and a line, summed over components."""
-    _require_vm(cfg)
+    """The sigma feature on the factors' own grid nodes, [Z, Y, X]: per
+    axis an outer product of a plane and a line, summed over components
+    (VM), or the three lines' outer product (CP)."""
+    if cfg.decomp == "cp":
+        return torch.einsum("zr,yr,xr->zyx", params["density_line_0"],
+                            params["density_line_1"],
+                            params["density_line_2"])
     p0, l0 = density_factors(cfg, params, 0)  # [Y, X, R], [Z, R]
     p1, l1 = density_factors(cfg, params, 1)  # [Z, X, R], [Y, R]
     p2, l2 = density_factors(cfg, params, 2)  # [Z, Y, R], [X, R]
@@ -310,14 +370,15 @@ def _mask_at_grid_nodes(scene: Dict, grid_xyz: Tuple[int, int, int]):
                        torch.ones_like(out))
 
 
-def _resized_factors(plane: torch.Tensor, line: torch.Tensor, max_reso: int):
-    """A plane [H, W, R] and a line [D, R] resized to at most ``max_reso``
-    nodes per axis (``align_corners``: the resized factors are the field's
-    exact VM factors at the coarser nodes)."""
-    H, W, _ = plane.shape
-    nh, nw = min(H, max_reso), min(W, max_reso)
-    if (nh, nw) != (H, W):
-        plane = resize_bilinear_align_corners(plane, (nh, nw))
+def _resized_factors(plane, line: torch.Tensor, max_reso: int):
+    """A plane [H, W, R] (None for CP) and a line [D, R] resized to at most
+    ``max_reso`` nodes per axis (``align_corners``: the resized factors are
+    the field's exact factors at the coarser nodes)."""
+    if plane is not None:
+        H, W, _ = plane.shape
+        nh, nw = min(H, max_reso), min(W, max_reso)
+        if (nh, nw) != (H, W):
+            plane = resize_bilinear_align_corners(plane, (nh, nw))
     if line.shape[0] > max_reso:
         line = resize_line_align_corners(line, max_reso)
     return plane, line
@@ -327,13 +388,20 @@ def _bake_masked_dense(cfg: FieldConfig, params: Dict, scene: Dict,
                        max_reso: int = 0) -> torch.Tensor:
     """Dense sigma-feature grid [Z, Y, X] with the alpha mask folded in
     (masked nodes -> -1e4, whose softplus is 0), on the factors resized to
-    at most ``max_reso`` nodes per axis when it is > 0."""
-    if max_reso > 0:
-        params = dict(params)
-        for i in range(3):
-            params[f"density_plane_{i}"], params[f"density_line_{i}"] = \
-                _resized_factors(*density_factors(cfg, params, i), max_reso)
-    baked = bake_sigma_feature_grid(cfg, params)
+    at most ``max_reso`` nodes per axis when it is > 0. The density
+    factors are re-keyed under the split names first (``vm_stacked``'s
+    slices become ``vm`` factors; CP keeps its lines only)."""
+    dense: Dict = {}
+    for i in range(3):
+        plane, line = density_factors(cfg, params, i)
+        if max_reso > 0:
+            plane, line = _resized_factors(plane, line, max_reso)
+        if plane is not None:
+            dense[f"density_plane_{i}"] = plane
+        dense[f"density_line_{i}"] = line
+    if cfg.decomp == "vm_stacked":
+        cfg = dataclasses.replace(cfg, decomp="vm")
+    baked = bake_sigma_feature_grid(cfg, dense)
     Z, Y, X = baked.shape
     mask = _mask_at_grid_nodes(scene, (X, Y, Z))
     return torch.where(mask > 0, baked, torch.full_like(baked, -1e4))
@@ -425,8 +493,10 @@ def bake_app_feature_grid(cfg: FieldConfig, params: Dict,
     factors at their own nodes is, per axis i, sum_r plane_i * line_i *
     (light_line[l] * basis)_i[r, a]: the product of the plane and line is
     made per node as [Z*Y*X, R] (at 64^3 nodes and R 48 a 50 MB f32
-    temporary) and contracted with the [R, A] light-basis product."""
-    _require_vm(cfg)
+    temporary) and contracted with the [R, A] light-basis product. VM
+    and ``vm_stacked`` only: CP keeps the exact appearance path."""
+    if cfg.decomp not in ("vm", "vm_stacked"):
+        raise ValueError(f"no appearance bake for decomp {cfg.decomp!r}")
     lc = params["light_line"]                           # [L, sum R]
     basis = params["basis_mat"]                         # [sum R, A]
     spatial = ("yxr,zr->zyxr", "zxr,yr->zyxr", "zyr,xr->zyxr")

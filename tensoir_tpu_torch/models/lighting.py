@@ -1,9 +1,12 @@
 """The learned environment light (port of tensoir_tpu.models.lighting):
-the lat-long direction sets, spherical Gaussians (init and evaluation),
-the lat-long map lookup, and the per-light query of every light kind
-(``sg``, ``pixel``: a learned lat-long map, ``gt``: the dataset's probe).
+the lat-long direction sets (texel centres, stratified, stratified in equal
+areas), spherical Gaussians (init and evaluation), the lat-long map lookup,
+the per-light query of every light kind (``sg``, ``pixel``: a learned
+lat-long map, ``gt``: the dataset's probe), and importance sampling of the
+learned light (CDF inversion in place of the reference's multinomial).
 
-The importance and equal-area samplers are not ported yet.
+Every sampler draws its uniforms from a ``torch.Generator``, or takes them
+as ``draws``, so that a test can hand it the JAX package's own.
 """
 from __future__ import annotations
 
@@ -45,22 +48,53 @@ def stratified_dirs(key: Optional[torch.Generator], envmap_h: int,
     = (u_phi, u_theta), so that a test can pass the JAX package's own."""
     lat_step = np.pi / envmap_h
     lng_step = 2 * np.pi / envmap_w
-    if draws is None:
-        gen_dev = key.device
-        u_phi = torch.rand((envmap_h, envmap_w), generator=key, device=gen_dev)
-        u_theta = torch.rand((envmap_h, envmap_w), generator=key,
-                             device=gen_dev)
-    else:
-        u_phi, u_theta = (torch.as_tensor(d, dtype=torch.float32)
-                          for d in draws)
-    dev = u_phi.device if device is None else torch.device(device)
+    u_phi, u_theta, dev = _uniform_pair(key, (envmap_h, envmap_w), draws,
+                                        device)
     phi0 = linspace(np.pi / 2 - 0.5 * lat_step, -np.pi / 2 + 0.5 * lat_step,
                     envmap_h, device=dev)
     th0 = linspace(np.pi - 0.5 * lng_step, -np.pi + 0.5 * lng_step, envmap_w,
                    device=dev)
     phi0, th0 = torch.meshgrid(phi0, th0, indexing="ij")
-    phi = phi0 + lat_step * (u_phi.to(dev) - 0.5)
-    theta = th0 + lng_step * (u_theta.to(dev) - 0.5)
+    phi = phi0 + lat_step * (u_phi - 0.5)
+    theta = th0 + lng_step * (u_theta - 0.5)
+    dirs = torch.stack([torch.cos(theta) * torch.cos(phi),
+                        torch.sin(theta) * torch.cos(phi),
+                        torch.sin(phi)], -1)
+    return dirs.reshape(-1, 3)
+
+
+def _uniform_pair(key, shape, draws, device):
+    """Two uniform tensors of ``shape``, drawn from ``key`` (the first
+    first) or given as ``draws``, on ``device`` (default: where they
+    are)."""
+    if draws is None:
+        u = [torch.rand(shape, generator=key, device=key.device)
+             for _ in range(2)]
+    else:
+        u = [torch.as_tensor(d, dtype=torch.float32) for d in draws]
+    dev = u[0].device if device is None else torch.device(device)
+    return u[0].to(dev), u[1].to(dev), dev
+
+
+def stratified_equal_area_dirs(key: Optional[torch.Generator], envmap_h: int,
+                               envmap_w: int, *, draws: Optional[Tuple] = None,
+                               device=None) -> torch.Tensor:
+    """Directions [H*W, 3] stratified in equal areas: sin(phi) on a grid
+    of H rows from 1 down to -1 and theta on W columns, each jittered by a
+    uniform draw of up to half a cell; ``draws`` = (u_sin_phi, u_theta)
+    as in ``stratified_dirs``."""
+    sp_step = 2.0 / envmap_h
+    lng_step = 2 * np.pi / envmap_w
+    u_sp, u_theta, dev = _uniform_pair(key, (envmap_h, envmap_w), draws,
+                                       device)
+    sp0 = linspace(1 - 0.5 * sp_step, -1 + 0.5 * sp_step, envmap_h,
+                   device=dev)
+    th0 = linspace(np.pi - 0.5 * lng_step, -np.pi + 0.5 * lng_step, envmap_w,
+                   device=dev)
+    sp0, th0 = torch.meshgrid(sp0, th0, indexing="ij")
+    sin_phi = sp0 + sp_step * (u_sp - 0.5)
+    theta = th0 + lng_step * (u_theta - 0.5)
+    phi = torch.arcsin(clip(sin_phi, -1.0, 1.0))
     dirs = torch.stack([torch.cos(theta) * torch.cos(phi),
                         torch.sin(theta) * torch.cos(phi),
                         torch.sin(phi)], -1)
@@ -163,3 +197,58 @@ def get_light_rgbs(light_params, cfg, dirs: torch.Tensor,
                              "(scene['gt_envmap'])")
         return latlong_lookup(gt_envmap, remapped, align_corners=False)
     raise ValueError(f"unknown light_kind {cfg.light_kind}")
+
+
+@torch.no_grad()
+def gen_light_incident_dirs_importance(light_params, cfg, key,
+                                       sample_number: int, env_h: int = 128,
+                                       env_w: int = 256, gt_envmap=None, *,
+                                       draws: Optional[Tuple] = None):
+    """Light directions drawn from the learned light (light 0's, as the
+    training step samples it): the light rendered on a stratified
+    ``env_h`` x ``env_w`` lat-long grid (its two [env_h, env_w] uniform
+    draws first), then ``sample_number`` draws from pdf proportional to
+    intensity * sin(theta) (the third draw). ``draws`` = (u_phi, u_theta,
+    u) replaces the generator. No gradient reaches the light. Returns
+    (dir [n, 3], rgb [n, 3], pdf [n, 1])."""
+    u_jit, u = (None, None) if draws is None else (draws[:2], draws[2])
+    light = gt_envmap if cfg.light_kind == "gt" and not cfg.per_light_sg \
+        else light_params.get("lgt_sgs", light_params.get("light_pixel"))
+    dirs = stratified_dirs(key, env_h, env_w, draws=u_jit,
+                           device=light.device)
+    env = get_light_rgbs(light_params, cfg, dirs, gt_envmap=gt_envmap)
+    return importance_sample_env(key, env[0].reshape(env_h, env_w, 3), dirs,
+                                 sample_number, u=u)
+
+
+@torch.no_grad()
+def importance_sample_env(key, env_map: torch.Tensor, env_dirs: torch.Tensor,
+                          n_samples: int, *, u=None):
+    """Directions drawn from a lat-long map [H, W, 3] by CDF inversion:
+    pdf_sample proportional to sum_rgb(env) * sin(theta), searchsorted of
+    ``n_samples`` uniforms (from ``key``, or ``u``), and the pdf per solid
+    angle pdf_sample * H * W / (2 pi^2 sin(theta)) of each draw.
+
+    The tables follow the JAX package's f32 arithmetic, except the
+    cumulative sum, which is taken in float64 and rounded to f32: the
+    correctly rounded prefix sums, equal on the CPU and the card (an f32
+    scan rounds in an order of its own on each). ``env_dirs`` [H*W, 3]
+    are the texels' directions. Returns (dir [n, 3], rgb [n, 3],
+    pdf [n, 1])."""
+    H, W, _ = env_map.shape
+    dev = env_map.device
+    intensity = env_map.sum(2)                                   # [H, W]
+    h_int = 1.0 / H
+    sin_theta = torch.sin(linspace(0.5 * h_int, np.pi - 0.5 * h_int, H,
+                                   device=dev))
+    pdf = intensity * sin_theta[:, None]
+    pdf_sample = (pdf / pdf.sum()).reshape(-1)
+    pdf_return = (pdf_sample.reshape(H, W) * H * W
+                  / (2.0 * np.pi * np.pi * sin_theta[:, None])).reshape(-1)
+    cdf = torch.cumsum(pdf_sample.double(), 0).float()
+    if u is None:
+        u = torch.rand((n_samples,), generator=key, device=key.device)
+    u = torch.as_tensor(u, dtype=torch.float32).to(dev)
+    idx = torch.searchsorted(cdf, u, right=True).clamp(0, H * W - 1)
+    return (env_dirs[idx], env_map.reshape(-1, 3)[idx],
+            pdf_return[idx][:, None])

@@ -118,18 +118,32 @@ def resize_line_align_corners(line: torch.Tensor, out_d: int) -> torch.Tensor:
     return lerp_line(line, _resize_positions(int(out_d), line.device))
 
 
-def lerp_line_matmul(line: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def lerp_line_matmul(line: torch.Tensor, z: torch.Tensor,
+                     extrapolate: bool = False) -> torch.Tensor:
     """Linear line lookup as a product with a two-tap matrix M [..., D]:
     1 - w at iz0 and w at iz0 + 1, the cell clipped to [0, D-2] and the
     weight to [0, 1], as the reference does. The gradient of the line is
     M^T @ g, a dense product: a line has a few hundred rows, so a gather's
-    backward would pile millions of adds onto each of them."""
+    backward would pile millions of adds onto each of them.
+
+    With ``extrapolate`` the taps are ``lerp_line``'s instead: iz0 and
+    iz0 + 1 each clipped to [0, D-1] and the weight not clipped, so the
+    line extends linearly below its first node and is flat past its last;
+    the value and gradients equal ``lerp_line``'s (the JAX package's CP
+    lookup) everywhere."""
     D = line.shape[0]
     iz = _unnormalize(z, D, True)
+    M = z.new_zeros(z.shape + (D,))
+    if extrapolate:
+        iz0 = torch.floor(iz).clamp(0, D - 1)
+        w1 = (iz - iz0)[..., None]
+        i0 = iz0.long()[..., None]
+        M.scatter_add_(-1, i0, 1.0 - w1).scatter_add_(
+            -1, (i0 + 1).clamp(max=D - 1), w1)
+        return torch.matmul(M, line)
     iz0 = torch.floor(iz).clamp(0, D - 2)
     w1 = clip(iz - iz0, 0.0, 1.0)[..., None]
     i0 = iz0.long()[..., None]
-    M = z.new_zeros(z.shape + (D,))
     M.scatter_(-1, i0, 1.0 - w1).scatter_(-1, i0 + 1, w1)
     return torch.matmul(M, line)
 

@@ -1,6 +1,7 @@
 """Ray marching primitives (port of tensoir_tpu.ops.rays, the parts the
-training step needs). Random jitter is passed in, not drawn here, so a test
-can hand both packages the same numbers."""
+training step needs, the NDC march and warp included). Random jitter is
+passed in, not drawn here, so a test can hand both packages the same
+numbers."""
 from __future__ import annotations
 
 from typing import Optional
@@ -65,6 +66,39 @@ def sample_ray_equally(rays_o, rays_d, aabb, vis_near: float,
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     valid = ((xyz >= aabb[0]) & (xyz <= aabb[1])).all(-1)
     return xyz, z_vals, valid
+
+
+def sample_ray_ndc(rays_o, rays_d, aabb, near: float, far: float,
+                   n_samples: int, jitter: Optional[torch.Tensor] = None):
+    """NDC-space marching: ``n_samples`` uniform z in [near, far], each
+    moved by ``jitter`` [N, S] (uniform draws) times the bin width when
+    given. Returns xyz [N, S, 3], z_vals [N, S], valid [N, S] (inside the
+    AABB)."""
+    N = rays_o.shape[0]
+    interpx = linspace(near, far, n_samples, rays_o.dtype,
+                       rays_o.device)[None, :]
+    if jitter is not None:
+        interpx = interpx + jitter * ((far - near) / n_samples)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    valid = ((xyz >= aabb[0]) & (xyz <= aabb[1])).all(-1)
+    return xyz, interpx.expand(N, n_samples), valid
+
+
+def ndc_rays_blender(h: int, w: int, focal: float, near: float, rays_o,
+                     rays_d):
+    """Blender-convention NDC warp of rays [..., 3] -> (origins,
+    directions)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    o0 = -1.0 / (w / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (h / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (w / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (h / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
 
 
 def z_to_dists(z_vals):

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tensoir_tpu_torch.device import resolve_device
+
 # how long ``barrier`` waits for the slowest rank: rank 0's work between
 # two steps (an eval of N_vis views, a checkpoint write) may take hours
 WAIT_TIMEOUT = timedelta(days=7)
@@ -50,8 +52,8 @@ def initialize(init_method: Optional[str] = None,
     A no-op (False) without a launcher's environment and without
     arguments, or when a group already exists. ``backend`` defaults to
     ``nccl`` on CUDA and ``gloo`` on the CPU (``device``: the rank's
-    device; default the launcher's ``cuda:LOCAL_RANK`` when CUDA is
-    present). A caller may name ``gloo`` for CUDA tensors. A failure
+    device; default the launcher's ``cuda:LOCAL_RANK``, and without CUDA
+    it raises). A caller may name ``gloo`` for CUDA tensors. A failure
     raises: the backend is never swapped for another.
     """
     if dist.is_initialized():
@@ -60,11 +62,9 @@ def initialize(init_method: Optional[str] = None,
     if (init_method is None and world_size is None and rank is None
             and not launched):
         return False
-    if device is None:
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        device = torch.device(f"cuda:{local}" if torch.cuda.is_available()
-                              else "cpu")
-    device = torch.device(device)
+    # no device: the launcher's card (resolve_device raises without CUDA;
+    # a rank is never moved to the CPU behind the caller's back)
+    device = resolve_device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":

@@ -4,7 +4,9 @@ tensoir_tpu.render.brdf_render).
 Given per-ray depth, normal, albedo, roughness and fresnel, pick incident
 light directions, march secondary rays for visibility and indirect light
 (without gradients), evaluate the GGX BRDF and the learned light (with
-gradients), and sum over the directions with their area weights.
+gradients), and integrate over the directions: a sum with the texels' area
+weights, the equal-area mean times 4 pi, or with importance-sampled
+directions the Monte Carlo mean of brdf * L * cos / pdf.
 """
 from __future__ import annotations
 
@@ -24,20 +26,30 @@ from tensoir_tpu_torch.render.secondary import secondary_shading_tiled
 
 def incident_light_dirs(cfg: F.FieldConfig, sample_method: str,
                         key: Optional[torch.Generator],
-                        device=None) -> torch.Tensor:
-    """Light directions [L, 3] of the integral: the fixed lat-long texel
-    centres (``fixed_envirmap``, or any method with ``key=None``), or those
-    jittered within their texels (``stratified_sampling``). The importance
-    and equal-area samplers are not ported yet."""
-    if sample_method in ("importance_sample", "stratifed_sample_equal_areas"):
-        raise NotImplementedError(
-            f"light sample method {sample_method!r}: not ported yet")
-    if sample_method == "fixed_envirmap" or key is None:
+                        params: Optional[Dict] = None, gt_envmap=None,
+                        device=None):
+    """The light directions of the integral, (dirs [L, 3], pdf [L, 1] or
+    None): the fixed lat-long texel centres (``fixed_envirmap``, or any
+    method with ``key=None``), those jittered within their texels
+    (``stratified_sampling``) or within equal-area cells
+    (``stratifed_sample_equal_areas``), or L draws from the learned light
+    (``importance_sample``, which alone returns a pdf)."""
+    n_dirs = cfg.envmap_h * cfg.envmap_w
+    if sample_method == "importance_sample" and key is not None:
+        if params is None:
+            raise ValueError("importance_sample needs the light params")
+        dirs, _, pdf = lighting.gen_light_incident_dirs_importance(
+            params, cfg, key, n_dirs, gt_envmap=gt_envmap)
+        return dirs.to(device), pdf.to(device)
+    if sample_method in ("fixed_envirmap", "importance_sample") or key is None:
         _, dirs = lighting.envmap_dirs(cfg.envmap_h, cfg.envmap_w)
-        return torch.as_tensor(dirs, device=device)
+        return torch.as_tensor(dirs, device=device), None
     if sample_method == "stratified_sampling":
         return lighting.stratified_dirs(key, cfg.envmap_h, cfg.envmap_w,
-                                        device=device)
+                                        device=device), None
+    if sample_method == "stratifed_sample_equal_areas":
+        return lighting.stratified_equal_area_dirs(
+            key, cfg.envmap_h, cfg.envmap_w, device=device), None
     raise ValueError(f"unknown light sample method {sample_method}")
 
 
@@ -85,7 +97,9 @@ def render_with_brdf(
 
     area_weight, _ = lighting.envmap_dirs(cfg.envmap_h, cfg.envmap_w)
     area_weight = torch.as_tensor(area_weight, device=dev)       # [L]
-    in_dirs = incident_light_dirs(cfg, sample_method, key, device=dev)
+    in_dirs, light_pdf = incident_light_dirs(
+        cfg, sample_method, key, params=params,
+        gt_envmap=scene.get("gt_envmap"), device=dev)
     P, L = rays.shape[0], in_dirs.shape[0]
     surf2l = in_dirs[None].expand(P, L, 3)
     surf2c = safe_l2_normalize(-rays_d)
@@ -122,7 +136,16 @@ def render_with_brdf(
     direct = F.light_rows(env_rgbs.reshape(env_rgbs.shape[0], -1), light_idx)
     light_rgbs = visibility * direct.reshape(P, L, 3) + indirect
 
-    rgb = (surface_brdf * light_rgbs * cosine[..., None]
-           * area_weight[None, :, None]).sum(1)
+    if sample_method == "stratifed_sample_equal_areas":
+        rgb = (4.0 * np.pi * surface_brdf * light_rgbs
+               * cosine[..., None]).mean(1)
+    elif light_pdf is not None:
+        # the importance-sampled Monte Carlo estimator
+        inv_pdf = 1.0 / clip(light_pdf[None, :, :], 1e-8, None)
+        rgb = (surface_brdf * light_rgbs * cosine[..., None]
+               * inv_pdf).mean(1)
+    else:
+        rgb = (surface_brdf * light_rgbs * cosine[..., None]
+               * area_weight[None, :, None]).sum(1)
     rgb = linear2srgb(clip(rgb, 0.0, 1.0))
     return (rgb, sec[2]) if return_secondary_stats else rgb

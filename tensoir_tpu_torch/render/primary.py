@@ -1,14 +1,18 @@
 """Primary ray rendering (port of tensoir_tpu.render.primary.render_rays).
 
-A fixed-step march, or with ``march_cap`` the first ``march_cap`` samples
-per ray that the dilated alpha mask marks occupied; density on every kept
-sample (zero outside the AABB and the alpha mask), compositing, then
-appearance and the MLP_Fea shader on a fixed per-ray top-k of samples by
-weight (``app_cap``). With ``is_relight`` the same top-k samples also get
-the BRDF MLP, its jittered copy for the smoothness losses, and normals
-(derived from the density's gradient, predicted by the normal MLP, or
-both). Randomness comes from a ``torch.Generator`` passed as ``key``;
-``key=None`` is the deterministic eval path.
+A fixed-step march (or with ``ndc_ray`` the forward-facing NDC march:
+uniform z in [near, far]), or with ``march_cap`` the first ``march_cap``
+samples per ray that the dilated alpha mask marks occupied; density on
+every kept sample (zero outside the AABB and the alpha mask), compositing,
+then appearance and the shader (MLP_Fea, MLP_PE, MLP, SH or RGB) on a
+fixed per-ray top-k of samples by weight (``app_cap``). With
+``is_relight`` the same top-k samples also get the BRDF MLP, its jittered
+copy for the smoothness losses, and normals (derived from the density's
+gradient, predicted by the normal MLP from the BRDF inputs or, as a
+residue, from the derived normal too, both, or zeros that the training
+renderer replaces by the dataset's normals). Randomness comes from a
+``torch.Generator`` passed as ``key``; ``key=None`` is the deterministic
+eval path.
 """
 from __future__ import annotations
 
@@ -23,16 +27,34 @@ from tensoir_tpu_torch.ops.color import linear2srgb
 from tensoir_tpu_torch.ops.compositing import raw2alpha
 from tensoir_tpu_torch.ops.interp import clip
 from tensoir_tpu_torch.ops.rays import (safe_l2_normalize, sample_ray,
-                                        z_to_dists)
+                                        sample_ray_ndc, z_to_dists)
+from tensoir_tpu_torch.ops.sh import eval_sh_bases
 
 
-def shade_radiance(cfg: F.FieldConfig, params, viewdirs, features):
-    """RGB from the MLP_Fea shader."""
-    if cfg.shading_mode != "MLP_Fea":
-        raise NotImplementedError(
-            f"shading_mode={cfg.shading_mode!r}: the port has only MLP_Fea")
-    x = mlps.render_fea_inputs(features, viewdirs, cfg.view_pe, cfg.fea_pe)
-    return torch.sigmoid(mlps.apply_mlp(params["render_mlp"], x))
+def shade_radiance(cfg: F.FieldConfig, params, pts, viewdirs, features):
+    """RGB of the shading mode at normalized points ``pts`` [..., 3] seen
+    along ``viewdirs`` from radiance ``features``: an MLP (sigmoid) on
+    MLP_Fea's, MLP_PE's or MLP's inputs, degree-2 SH coefficients (9 per
+    channel, relu(sum + 0.5)), or the features themselves (RGB)."""
+    mode = cfg.shading_mode
+    if mode in ("MLP_Fea", "MLP_PE", "MLP"):
+        if mode == "MLP_Fea":
+            x = mlps.render_fea_inputs(features, viewdirs, cfg.view_pe,
+                                       cfg.fea_pe)
+        elif mode == "MLP_PE":
+            x = mlps.render_pe_inputs(pts, features, viewdirs, cfg.view_pe,
+                                      cfg.pos_pe)
+        else:
+            x = mlps.render_plain_inputs(features, viewdirs, cfg.view_pe)
+        return torch.sigmoid(mlps.apply_mlp(params["render_mlp"], x,
+                                            cfg.compute_dtype))
+    if mode == "SH":
+        sh_mult = eval_sh_bases(2, viewdirs)[..., None, :]
+        rgb_sh = features.reshape(*features.shape[:-1], 3, 9)
+        return torch.relu((sh_mult * rgb_sh).sum(-1) + 0.5)
+    if mode == "RGB":
+        return features
+    raise ValueError(f"unknown shading mode {mode}")
 
 
 def select_occupied_samples(valid: torch.Tensor, cap: int):
@@ -111,13 +133,13 @@ def render_rays(
     march_group: int = 0,
     ndc_ray: bool = False,
 ) -> Dict[str, torch.Tensor]:
+    """The primary pass's maps of the rays [B, 6] under lights
+    ``light_idx`` [B]. With ``cfg.normals_kind`` ``gt_normals`` the normals
+    are zeros: ``render_train_batch`` puts the dataset's in their place."""
     if march_group > 1:
-        raise NotImplementedError("march_group > 1 (grouped primary march)")
-    if ndc_ray:
-        raise NotImplementedError("ndc_ray=True (forward-facing NDC march)")
-    if is_relight and cfg.normals_kind in ("gt_normals",
-                                           "residue_prediction"):
-        raise NotImplementedError(f"normals_kind={cfg.normals_kind!r}")
+        raise NotImplementedError(
+            "march_group > 1 (grouped primary march): not ported yet "
+            "(ROADMAP queue 1 item 6d)")
     B = rays.shape[0]
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
     aabb = scene["aabb"]
@@ -125,12 +147,26 @@ def render_rays(
     near, far = cfg.near_far
 
     jitter = None
-    if key is not None and is_train:
-        jitter = torch.rand((B, 1), generator=key, device=rays.device,
-                            dtype=rays.dtype)
-    xyz, z_vals, ray_valid = sample_ray(rays_o, viewdirs, aabb, near, far,
-                                        step, n_samples, jitter=jitter)
-    dists = z_to_dists(z_vals)
+    if ndc_ray:
+        # uniform z in [near, far], each sample jittered within its bin at
+        # train time; dists scaled by the ray's norm, the view directions
+        # normalized afterwards
+        if key is not None and is_train:
+            jitter = torch.rand((B, n_samples), generator=key,
+                                device=rays.device, dtype=rays.dtype)
+        xyz, z_vals, ray_valid = sample_ray_ndc(rays_o, viewdirs, aabb, near,
+                                                far, n_samples, jitter=jitter)
+        rays_norm = torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True)
+        dists = z_to_dists(z_vals) * rays_norm
+        viewdirs = viewdirs / rays_norm.clamp_min(1e-12)
+    else:
+        if key is not None and is_train:
+            jitter = torch.rand((B, 1), generator=key, device=rays.device,
+                                dtype=rays.dtype)
+        xyz, z_vals, ray_valid = sample_ray(rays_o, viewdirs, aabb, near,
+                                            far, step, n_samples,
+                                            jitter=jitter)
+        dists = z_to_dists(z_vals)
     coords = F.normalize_coord(aabb, xyz)                      # [B, S, 3]
 
     out = {}
@@ -183,7 +219,8 @@ def render_rays(
         rad_feat, intr_feat = F.both_features(cfg, params, pts_sel, lidx_sel)
     else:
         rad_feat = F.app_feature(cfg, params, pts_sel, lidx_sel)
-    rgb = shade_radiance(cfg, params, vdirs_sel, rad_feat)     # [B, k, 3]
+    rgb = shade_radiance(cfg, params, pts_sel, vdirs_sel,
+                         rad_feat)                             # [B, k, 3]
     rgb_map = (w_sel[..., None] * rgb).sum(-2)
 
     # white background, or a coin flip per batch at train time
@@ -203,7 +240,8 @@ def render_rays(
     # ---- relight branch: BRDF and normals on the selected samples ----
     brdf_in = mlps.brdf_pe_fea_inputs(pts_sel, intr_feat, cfg.pos_pe,
                                       cfg.fea_pe)
-    brdf = torch.sigmoid(mlps.apply_mlp(params["brdf_mlp"], brdf_in))
+    cdt = cfg.compute_dtype
+    brdf = torch.sigmoid(mlps.apply_mlp(params["brdf_mlp"], brdf_in, cdt))
     albedo = brdf[..., :3]
     roughness = brdf[..., 3:4] * 0.9 + 0.09
 
@@ -217,7 +255,8 @@ def render_rays(
     intr_jit = F.intrin_feature(cfg, params, pts_jit)
     brdf_jit = torch.sigmoid(mlps.apply_mlp(
         params["brdf_mlp"],
-        mlps.brdf_pe_fea_inputs(pts_jit, intr_jit, cfg.pos_pe, cfg.fea_pe)))
+        mlps.brdf_pe_fea_inputs(pts_jit, intr_jit, cfg.pos_pe, cfg.fea_pe),
+        cdt))
     sel = sel_mask[..., None]
     albedo_sm = _relative_smoothness(albedo, brdf_jit[..., :3]) * sel
     roughness_sm = _relative_smoothness(
@@ -225,22 +264,32 @@ def render_rays(
 
     normals_diff = torch.zeros_like(albedo_sm)
     normals_ori = torch.zeros_like(albedo_sm)
-    if cfg.normals_kind in ("purely_derived", "derived_plus_predicted"):
+    kind = cfg.normals_kind
+    if kind in ("purely_derived", "derived_plus_predicted",
+                "residue_prediction"):
         with record_function("derived_normals"):
             derived = F.derived_normals(
                 cfg, params, pts_sel.reshape(-1, 3)).reshape(pts_sel.shape)
-    if cfg.normals_kind == "purely_derived":
+    if kind == "purely_derived":
         normals = derived
-    elif cfg.normals_kind in ("purely_predicted", "derived_plus_predicted"):
-        # the normal MLP reads the same inputs as the BRDF MLP
-        normals = torch.tanh(mlps.apply_mlp(params["normal_mlp"], brdf_in))
-        if cfg.normals_kind == "derived_plus_predicted":
+    elif kind == "gt_normals":
+        normals = torch.zeros_like(pts_sel)
+    elif kind in ("purely_predicted", "derived_plus_predicted",
+                  "residue_prediction"):
+        # the normal MLP reads the BRDF MLP's inputs, or as a residue the
+        # derived normal as well
+        nrm_in = (mlps.normal_residue_inputs(pts_sel, derived, intr_feat,
+                                             cfg.pos_pe, cfg.fea_pe)
+                  if kind == "residue_prediction" else brdf_in)
+        normals = torch.tanh(mlps.apply_mlp(params["normal_mlp"], nrm_in,
+                                            cdt))
+        if kind != "purely_predicted":
             normals_diff = ((normals - derived) ** 2).sum(
                 -1, keepdim=True) * sel
             normals_ori = clip((vdirs_sel * normals).sum(-1, keepdim=True),
                                0.0, None) * sel
     else:
-        raise ValueError(cfg.normals_kind)
+        raise ValueError(kind)
 
     w1 = w_sel[..., None]
     acc1 = (1.0 - acc_map[..., None]) * bgw

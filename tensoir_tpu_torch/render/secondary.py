@@ -311,7 +311,7 @@ def compute_radiance(
         feat = F.app_feature_baked(*app_baked, pts_sel, lidx)
     else:
         feat = F.app_feature(cfg, params, pts_sel, lidx)
-    rgb = primary.shade_radiance(cfg, params, vdirs, feat)
+    rgb = primary.shade_radiance(cfg, params, pts_sel, vdirs, feat)
     sub_indirect = ((w_sel[..., None] * rgb).sum(-2)
                     * pair_valid[:, None])                       # [cap, 3]
     if pair_idx is None:
@@ -347,7 +347,8 @@ def _require_unported_off(**knobs) -> None:
         if value:
             raise NotImplementedError(
                 f"{name}={value!r}: not ported yet (the secondary pass has "
-                "no grouped march and no global app stage)")
+                "no grouped march and no global app stage; ROADMAP queue 1 "
+                "item 6d)")
 
 
 def _reduce_stats(tile_stats, *, n_tiles: int, app_pair_cap: int,
@@ -431,7 +432,8 @@ def secondary_shading_tiled(
                                              max_reso=bake_reso)
             if 0 < window < n_sample:
                 coarse = F.bake_coarse_occupancy(baked, dilate=coarse_dilate)
-            if app_bake_reso > 0:
+            # CP has no appearance bake: it keeps the exact app stage
+            if app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
                 grid = F.bake_app_feature_grid(cfg, params,
                                                max_reso=app_bake_reso)
                 cells = F.app_bake_cells(cfg, params, app_bake_reso)

@@ -5,7 +5,9 @@ tensoir_tpu.render.train_render.render_train_batch).
 The reference relights every ray whose accumulated opacity passes 0.5 (a
 count that varies); here a fixed ``relight_ray_cap`` of rays is relit,
 those rays first (a stable argsort), and the result is scattered back.
-Rays that are not relit keep the white background.
+Rays that are not relit keep the white background. With
+``normals_kind='gt_normals'`` the dataset's normals ``normal_gt`` [B, 3]
+take the place of the normal map.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ def render_train_batch(
     second_near: float = 0.05,
     second_far: float = 1.5,
     secondary_tile: int = 16384,
+    normal_gt: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     with record_function("primary"):
         ret = render_rays(cfg, params, scene, rays, light_idx,
@@ -72,6 +75,8 @@ def render_train_batch(
 
     B = rays.shape[0]
     acc_mask = ret["acc_mask"]
+    if cfg.normals_kind == "gt_normals" and normal_gt is not None:
+        ret["normal_map"] = normal_gt
     cap = min(relight_ray_cap, B) if relight_ray_cap > 0 else B
     if cap < B:
         # stable: the rays with acc > 0.5 first, each group in batch order

@@ -1,6 +1,8 @@
 """Model-side regularizers (port of tensoir_tpu.train.losses): line
 orthogonality, density L1 and plane total variation. ``cfg`` selects the
-sliced access of the stacked VM layout; None keeps the split-VM names."""
+sliced access of the stacked VM layout; None keeps the split-VM names.
+A term with no factor to act on (TV of CP, which has no planes) is a zero
+tensor on the parameters' device."""
 from __future__ import annotations
 
 from typing import Dict
@@ -26,8 +28,12 @@ def _factors(params: Dict, cfg, name: str, i: int):
     return params.get(f"{name}_plane_{i}"), params.get(f"{name}_line_{i}")
 
 
+def _zero(params: Dict) -> torch.Tensor:
+    return params["basis_mat"].new_zeros(())
+
+
 def ortho_loss(params: Dict, cfg=None) -> torch.Tensor:
-    total = 0.0
+    total = _zero(params)
     for i in range(3):
         for name in ("density", "app"):
             _, line = _factors(params, cfg, name, i)
@@ -38,7 +44,7 @@ def ortho_loss(params: Dict, cfg=None) -> torch.Tensor:
 
 def density_l1(params: Dict, cfg=None) -> torch.Tensor:
     """mean|plane| + mean|line| over the density factors."""
-    total = 0.0
+    total = _zero(params)
     for i in range(3):
         plane, line = _factors(params, cfg, "density", i)
         if plane is not None:
@@ -59,7 +65,7 @@ def _tv_plane(plane: torch.Tensor) -> torch.Tensor:
 
 
 def tv_loss_density(params: Dict, cfg=None) -> torch.Tensor:
-    total = 0.0
+    total = _zero(params)
     for i in range(3):
         plane, _ = _factors(params, cfg, "density", i)
         if plane is not None:
@@ -68,7 +74,7 @@ def tv_loss_density(params: Dict, cfg=None) -> torch.Tensor:
 
 
 def tv_loss_app(params: Dict, cfg=None) -> torch.Tensor:
-    total = 0.0
+    total = _zero(params)
     for i in range(3):
         plane, _ = _factors(params, cfg, "app", i)
         if plane is not None:

@@ -2,9 +2,10 @@
 tensoir_tpu.train.step, for the radiance and the relight phase).
 
 ``LossWeights`` and ``StepStatic`` keep the JAX package's fields, so one
-config drives both (``bench.py``'s fast-knob step included); the knobs of
-paths the port does not have yet raise in the renderer. The step runs
-eagerly on ``device``: forward, backward, then the in-place Adam update.
+config drives both (``bench.py``'s fast-knob step included); the grouped
+marches and the global app stage, which the port does not have yet,
+raise. The step runs eagerly on ``device``: forward, backward, then the
+in-place Adam update.
 With a ``parallel.Mesh`` of several processes, each rank renders its own
 rays and the gradients are averaged over the group before the update.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -91,7 +93,8 @@ class StepStatic:
         # shapes only the grouped march's bake, which is not ported yet
         if self.group_bake_reso != 0:
             raise NotImplementedError(
-                f"group_bake_reso={self.group_bake_reso!r}: not ported yet")
+                f"group_bake_reso={self.group_bake_reso!r}: not ported yet "
+                f"(ROADMAP queue 1 item 6d)")
 
 
 def compute_loss(cfg: F.FieldConfig, params, scene, batch,
@@ -122,7 +125,8 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         second_window_probe_back=st.second_window_probe_back,
         ndc_ray=st.ndc_ray, relight_ray_cap=st.relight_ray_cap,
         second_n_sample=st.second_n_sample, second_near=st.second_near,
-        second_far=st.second_far, secondary_tile=st.secondary_tile)
+        second_far=st.second_far, secondary_tile=st.secondary_tile,
+        normal_gt=batch.get("normal_gt"))
 
     loss_rgb = ((ret["rgb_map"] - batch["rgbs"]) ** 2).mean()
     total = loss_rgb
@@ -137,13 +141,11 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         metrics["loss_l1"] = l1
     # TV weights decay multiplicatively every step they are applied
     if w.tv_density > 0:
-        tv = L.tv_loss_density(params, cfg) * (
-            w.tv_density * w.lr_factor ** (step + 1.0))
+        tv = L.tv_loss_density(params, cfg) * _decayed(w.tv_density, w, step)
         total = total + tv
         metrics["loss_tv_density"] = tv
     if w.tv_app > 0:
-        tv = L.tv_loss_app(params, cfg) * (
-            w.tv_app * w.lr_factor ** (step + 1.0))
+        tv = L.tv_loss_app(params, cfg) * _decayed(w.tv_app, w, step)
         total = total + tv
         metrics["loss_tv_app"] = tv
     if st.is_relight:
@@ -160,6 +162,14 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         # the rays the reference would relight
         metrics["n_acc_masked"] = ret["acc_mask"].float().sum()
     return total, metrics
+
+
+def _decayed(weight: float, w: LossWeights, step: int) -> float:
+    """weight * lr_factor ** (step + 1) in f32, as the JAX step computes it
+    (a float64 power of the f32-rounded factor drifts from it by 1.9e-4
+    relative at step 10,000)."""
+    f32 = np.float32
+    return float(f32(weight) * np.power(f32(w.lr_factor), f32(step + 1.0)))
 
 
 def _relight_losses(ret, rgb_gt, step: int, w: LossWeights, metrics):
@@ -201,8 +211,9 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
     """Build the step: ``step_fn(params, opt_state, scene, batch, key, step)
     -> (params, opt_state, metrics)``.
 
-    ``batch`` holds ``rays`` [B, 6], ``rgbs`` [B, 3] and ``light_idx`` [B]
-    (tensors or arrays; moved to ``device``). ``key`` is a
+    ``batch`` holds ``rays`` [B, 6], ``rgbs`` [B, 3] and ``light_idx`` [B],
+    and may hold ``normal_gt`` [B, 3] for ``gt_normals`` (tensors or
+    arrays; moved to ``device``). ``key`` is a
     ``torch.Generator`` on ``device`` (or None when ``st.deterministic``).
     Parameters and Adam moments are updated in place and returned;
     metrics are detached 0-d tensors on the device (reading them syncs).

@@ -235,9 +235,31 @@ def test_bench_scene_and_sg_init_match_jax():
 
 @pytest.mark.parametrize("decomp", ["cp", "vm_stacked"])
 def test_unported_decompositions_raise(decomp):
-    cfg = TF.FieldConfig(decomp=decomp)
-    with pytest.raises(NotImplementedError):
-        TF.init_field_params(torch.Generator(), cfg, (4, 4, 4),
-                             [[-1] * 3, [1] * 3], device="cpu")
-    with pytest.raises(NotImplementedError):
-        TF.density_feature(cfg, {}, torch.zeros((2, 3)))
+    """Once refused, TensorCP and the stacked TensorVM are ported: the init
+    builds JAX's parameter set, and the density feature and its parameter
+    gradients match JAX's on a JAX-made field
+    (tests/test_torch_variants_field.py holds the rest); an unknown
+    decomposition raises."""
+    jcfg = small_cfg(decomp=decomp)
+    jp, _ = jax_field(jcfg)
+    tp, _ = port_field(jp, {})
+    gp, _ = TF.init_field_params(torch.Generator(), port_cfg(jcfg),
+                                 (24, 20, 16), [[-1] * 3, [1] * 3],
+                                 device="cpu")
+    assert {k: tuple(v.shape) for k, v in gp.items() if "mlp" not in k} == {
+        k: tuple(v.shape) for k, v in jp.items() if "mlp" not in k}
+    c = _coords(64, seed=3)
+
+    def j_loss(p):
+        return jnp.sum(JF.density_feature(jcfg, p, jnp.asarray(c)) ** 2)
+
+    leaves = _leaves(tp)
+    got = TF.density_feature(port_cfg(jcfg), leaves, t(c))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(
+        JF.density_feature(jcfg, jp, jnp.asarray(c))), **FEAT)
+    (got ** 2).sum().backward()
+    _assert_grads({k: v for k, v in leaves.items() if k[:3] in ("den", "sta")},
+                  jax.jit(jax.grad(j_loss))(jp))
+    with pytest.raises(ValueError):
+        TF.init_field_params(torch.Generator(), TF.FieldConfig(decomp="vq"),
+                             (4, 4, 4), [[-1] * 3, [1] * 3], device="cpu")

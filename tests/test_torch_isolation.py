@@ -2,8 +2,10 @@
 PIL, imageio and cv2 (the machine with the card has none of the last
 three), and runs a radiance step, the same step under a one-rank gloo
 process group (``parallel``), a relight and a fast-knob relight training
-step, a tiny relighting benchmark on a relighting test set written to
-disk, a 3-iteration training run through an alpha-mask and shrink event
+step, relight and NDC steps of TensorCP and the stacked TensorVM (the
+importance and equal-area samplers, bf16, SH, residue normals), a tiny
+relighting benchmark on a relighting test set written to disk, a
+3-iteration training run through an alpha-mask and shrink event
 that writes and reads back its checkpoint, and a tiny run of the training
 CLI on a scene written to disk (the loaders, evals during training, the
 final render_test, a render-only run from the checkpoint, a mesh export
@@ -92,6 +94,34 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(3), 10001)
     assert math.isfinite(float(m["total_loss"]))
     assert 0.0 <= float(m["sec/app_pair_occupancy"])
+    # the model variants: TensorCP and the stacked TensorVM, each through a
+    # relight step that draws its light directions from the generator
+    # (importance, equal areas), with bf16 products, SH shading and
+    # residue normals; and an NDC radiance step
+    import dataclasses
+    for kw, method in (
+            (dict(decomp="cp", compute_dtype="bfloat16"),
+             "importance_sample"),
+            (dict(decomp="vm_stacked", shading_mode="SH", app_dim=27,
+                  normals_kind="residue_prediction"),
+             "stratifed_sample_equal_areas")):
+        vcfg = dataclasses.replace(cfg, **kw)
+        vp, vs = init_field_params(torch.Generator().manual_seed(5), vcfg,
+                                   (16, 16, 16), [[-1.5] * 3, [1.5] * 3],
+                                   device="cpu")
+        vs, _ = update_alpha_mask(vcfg, vp, vs, (16, 16, 16))
+        vopt = make_optimizer(vp, 0.02, 1e-3, 0.999)
+        for st in (StepStatic(n_samples=32, is_relight=True, white_bg=True,
+                              app_cap=8, march_cap=16, relight_ray_cap=8,
+                              second_n_sample=16, secondary_tile=128,
+                              sample_method=method),
+                   StepStatic(n_samples=32, is_relight=False, white_bg=True,
+                              app_cap=8, ndc_ray=True)):
+            vstep = make_train_step(vcfg, vopt, st, LossWeights(
+                l1=4e-5, tv_density=0.05), device="cpu")
+            vp, vstate, m = vstep(vp, vopt.init(vp), vs, batch,
+                                  torch.Generator().manual_seed(6), 10000)
+            assert math.isfinite(float(m["total_loss"])), (kw, st)
     # relighting: a relighting test set on disk, its loader, the held-out
     # light, and a tiny benchmark with its artifact tree
     import os

@@ -9,6 +9,7 @@ shows in the parameter only through its sign, and the tolerance is well
 under the smallest step, 1e-3).
 """
 import dataclasses
+import functools
 from pathlib import Path
 
 import jax
@@ -19,6 +20,7 @@ import torch
 
 from tensoir_tpu import config as JC
 from tensoir_tpu.models import lifecycle as JLC
+from tensoir_tpu.render import primary as JP
 from tensoir_tpu.train import optim as JO
 from tensoir_tpu.train import step as JS
 from tensoir_tpu.train.loop import field_config_from as j_field_config_from
@@ -66,17 +68,28 @@ def test_render_rays_matches_jax(app_cap):
 
 
 def test_unported_paths_raise():
+    """The grouped marches still raise. The NDC march and the importance
+    sampler, once refused here, run and match JAX (the sampler with its
+    key: directions drawn from the learned light, which the deterministic
+    step replaces by the fixed grid)."""
     jcfg = small_cfg(envmap_h=2, envmap_w=4)
-    tp, ts = port_field(*jax_field(jcfg))
+    jp, js = jax_field(jcfg)
+    tp, ts = port_field(jp, js)
     r, lidx, _ = _inputs()
-    for kw in (dict(march_group=2), dict(ndc_ray=True)):
-        args = dict(n_samples=S, key=None, is_relight=False)
-        args.update(kw)
-        with pytest.raises(NotImplementedError):
-            t_render_rays(port_cfg(jcfg), tp, ts, t(r),
-                          t(lidx, torch.int32), **args)
+    args = dict(n_samples=S, key=None, is_relight=False)
+    with pytest.raises(NotImplementedError):
+        t_render_rays(port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
+                      march_group=2, **args)
+    j_ndc = jax.jit(functools.partial(JP.render_rays, ndc_ray=True),
+                    static_argnums=0, static_argnames=tuple(args))
+    jout = j_ndc(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx), **args)
+    tout = t_render_rays(port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
+                         ndc_ray=True, **args)
+    for k in ("rgb_map", "depth_map", "acc_map"):
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]),
+                                   rtol=2e-5, atol=2e-6, err_msg=k)
     # the relight step runs, with bench.py's fast knobs too; the grouped
-    # march and the importance sampler raise
+    # march raises
     base = dict(n_samples=S, key=None, is_train=False, is_relight=True,
                 relight_ray_cap=4, second_n_sample=8, secondary_tile=64)
     fast = dict(second_window=4, second_window_back=2, second_prepass_n=8,
@@ -88,11 +101,15 @@ def test_unported_paths_raise():
                                    t(lidx, torch.int32), **base, **kw)
         assert ret["rgb_with_brdf_map"].shape == (B, 3)
     assert "sec/app_pair_occupancy" in ret
-    for kw in (dict(second_march_group=2),
-               dict(sample_method="importance_sample")):
-        with pytest.raises(NotImplementedError):
-            t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
-                                 t(lidx, torch.int32), **base, **kw)
+    with pytest.raises(NotImplementedError):
+        t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
+                             t(lidx, torch.int32), second_march_group=2,
+                             **base)
+    imp = t_render_train_batch(
+        port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
+        sample_method="importance_sample",
+        **dict(base, key=torch.Generator().manual_seed(0)))
+    assert bool(torch.isfinite(imp["rgb_with_brdf_map"]).all())
     # the grouped march's own bake knob raises where it is set
     with pytest.raises(NotImplementedError):
         TS.StepStatic(n_samples=S, is_relight=True, white_bg=True,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tensoir_tpu.models import field as JF
+from tensoir_tpu.models import lifecycle as JLC
 from tensoir_tpu.render.primary import render_rays as _j_render_rays
 from tensoir_tpu.utils.bench_scene import seed_solid_blob
 from tensoir_tpu_torch.models import field as TF
@@ -40,13 +41,61 @@ _init = jax.jit(JF.init_field_params, static_argnums=(1, 2))
 _blob = jax.jit(lambda p: seed_solid_blob(dict(p), amp=4.0, sharp=0.2))
 
 
+def _bump(n: int, sharp: float) -> np.ndarray:
+    z = np.linspace(-1, 1, n)
+    return np.exp(-(z ** 2) / sharp).astype(np.float32)
+
+
+def seed_variant_blob(jcfg: JF.FieldConfig, params, amp: float = 4.0,
+                      sharp: float = 0.2):
+    """The solid blob of ``seed_solid_blob`` for the decompositions it
+    does not know: on the first density channel of the stacked tensors
+    (``vm_stacked``), or as a product of three line bumps (``cp``)."""
+    params = dict(params)
+    for i in range(3):
+        if jcfg.decomp == "vm_stacked":
+            a = jcfg.app_n_comp[i]
+            g = params[f"stack_plane_{i}"]
+            H, W, _ = g.shape
+            bump = np.outer(_bump(H, sharp), _bump(W, sharp))
+            params[f"stack_plane_{i}"] = g.at[..., a].add(amp * bump)
+            ln = params[f"stack_line_{i}"]
+            params[f"stack_line_{i}"] = ln.at[:, a].add(
+                _bump(ln.shape[0], sharp))
+        else:
+            ln = params[f"density_line_{i}"]
+            params[f"density_line_{i}"] = ln.at[:, 0].add(
+                amp * _bump(ln.shape[0], sharp))
+    return params
+
+
 def jax_field(jcfg: JF.FieldConfig, grid=(24, 20, 16), seed: int = 0,
               blob: bool = True):
     """(params, scene) of the JAX package, with a solid blob seeded."""
     params, scene = _init(jax.random.PRNGKey(seed), jcfg, tuple(grid), AABB)
     if blob:
-        params = _blob(params)
+        params = (_blob(params) if jcfg.decomp == "vm"
+                  else seed_variant_blob(jcfg, params))
     return params, scene
+
+
+def masked_jax_field(grid=(24, 20, 16), **kw):
+    """(cfg, params, scene) of the JAX package: the blob field of
+    ``small_cfg(envmap_h=4, envmap_w=8, **kw)``, its scene masked by JAX's
+    ``update_alpha_mask`` at the field's grid."""
+    jcfg = small_cfg(envmap_h=4, envmap_w=8, **kw)
+    jp, js = jax_field(jcfg, grid=grid)
+    js, _ = JLC.update_alpha_mask(jcfg, jp, js, grid)
+    return jcfg, jp, js
+
+
+def as_np(x) -> np.ndarray:
+    """A torch tensor or a JAX array as numpy, bf16 read as f32."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
 
 
 j_render_rays = jax.jit(
