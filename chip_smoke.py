@@ -9,6 +9,9 @@
                                      # the last line
     python3 chip_smoke.py --variants # build and the three variants_*
                                      # phases only; ends the same way
+    python3 chip_smoke.py --grouped  # build, the three grouped_* phases
+                                     # and the grouped rows' kernel cases
+                                     # only; ends the same way
 
 Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
@@ -165,6 +168,32 @@ Phases, one JSON line each, in this order:
                ckpt_final; render-only from it must equal the run's
                metrics bit for bit. `python3 chip_smoke.py --variants`
                runs only the build and these three phases
+  grouped_step_parity
+               one deterministic step of bench.py's configuration at its CPU
+               sizes (24 secondary samples, march cap 32, the pair cap
+               lifted) with each grouped knob: march_group 2 and 4,
+               second_march_group 2, and 4 on a bake of 16,
+               secondary_app_hoist, and all together, card vs CPU: loss
+               1e-4, every gradient 1e-3
+  grouped_train
+               bench.py's step at full width (bench_setup(full=True)),
+               deterministic, ungrouped and then with each grouped knob
+               (march_group 2 and 4, second_march_group 2, 4 with
+               group_bake_reso 64, secondary_app_hoist, all together), and
+               ungrouped again (the host's clock drifts), from
+               copies of one masked field: first loss beside the ungrouped
+               one (held to 1e-4 where the identity holds), the march's
+               overflow fraction, step ms, device-busy ms, peak memory,
+               K1/K2 launches per step by shape (the 16-corner block rows
+               and the 27-corner rows must launch)
+  grouped_cli  python -m tensoir_tpu_torch.train_tensoir on the armadillo
+               config at full width with every grouped knob on bench.py's
+               fast knobs, in this process, on a scene it writes (2 views
+               of 800x800, one of 200x200): mask + shrink, upsample to
+               300^3, relight iterations and an eval, the loop's group
+               resolutions and downgrade lines; render-only from
+               ckpt_final, bit-equal; then a short run at
+               --downsample_train 2 over the 800x800 PNGs (resized on load)
   dp_nccl      data-parallel (parallel/): one process in a one-rank NCCL
                group, 3 deterministic relight steps of relight_train's
                field at full width through make_train_step(mesh=...)
@@ -212,7 +241,10 @@ Phases, one JSON line each, in this order:
                mesh export, the multi-light CLI runs, the data-parallel
                phases and the variants' steps and CLI runs (per
                decomposition), and at the eval's density and appearance
-               lookups
+               lookups; and the grouped marches' rows (grouped_*): K1-f32
+               at the 16-corner block rows and K2 at their gradient,
+               K1-bf16 at the 27-corner rows as 27 bf16 (54 B) and padded
+               to 32 (64 B)
 Then the kernel summary line, the card's name and power limit, and the last
 line {"ok": true, "device": ...}. Any failure exits non-zero without that
 line; so does a machine without CUDA. Imports nothing of JAX.
@@ -622,6 +654,9 @@ def phase_kernels(streams, busiest):
     # mask) and the two multi-light CLI runs
     for i, path in enumerate(NEW_PATHS):
         out[path] = busiest_cases(busiest[path], seed=100 + 10 * i)
+    block, out["grouped_pair"] = grouped_kernel_cases()
+    for g, case in block.items():
+        out[f"grouped_block16_g{g}"] = case
     out["eval_lookups"] = eval_lookup_cases(busiest["eval"])
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
@@ -890,7 +925,8 @@ def phase_train(streams):
 
 # the record_function ranges of the step (train/step.py, render/*.py)
 RANGES = ("forward", "backward", "adam", "primary", "derived_normals",
-          "brdf_render", "bake", "secondary_march", "visibility")
+          "brdf_render", "bake", "secondary_march", "app_stage_global",
+          "visibility")
 
 
 def emit_breakdown(phase: str, run_step, step_ms: float) -> dict:
@@ -1884,8 +1920,9 @@ def phase_train_run(keep_dir: str):
 
 
 # the eval's view, cut from a TensoIR-Synthetic view's 800 x 800: one
-# 800 x 800 view took 226.0 s on the card (PERF.md), 400 x 400 a quarter
-EVAL_WH = 400
+# 800 x 800 view took 226.0 s on the card (PERF.md), 400 x 400 a quarter;
+# 200 x 200 (a sixteenth) leaves the smoke room for the grouped phases
+EVAL_WH = 200
 # rays of eval_parity (both devices render them, the CPU at full width)
 EVAL_PARITY_RAYS = 256
 
@@ -3121,6 +3158,371 @@ def phase_variants_cli():
     return launches, shapes
 
 
+# the grouped knobs (slice j), each against the ungrouped step: (name,
+# StepStatic overrides). bench.py's step at full width runs them with its
+# own sizes (window 48/16, bake 128, app bake 64): a pair of samples spans
+# 0.0153 of the 0.0236 cell of the 128 bake, four span 0.0458 of the 0.0476
+# cell of the 64 bake; all together is ablate_group.py's g4_gb64_ab64_pg4
+# with the hoist
+GROUPED_KNOBS = (
+    ("march_group_2", dict(march_group=2)),
+    ("march_group_4", dict(march_group=4)),
+    ("second_march_group_2", dict(second_march_group=2)),
+    ("second_march_group_4_gb64", dict(second_march_group=4,
+                                       group_bake_reso=64)),
+    ("secondary_app_hoist", dict(secondary_app_hoist=True)),
+    ("all", dict(march_group=4, second_march_group=4, group_bake_reso=64,
+                 secondary_app_hoist=True)))
+GROUPED_TRAIN_STEPS = 3
+# grouped_step_parity's sizes differ: 24 secondary samples (a pair spans
+# 0.063 of the 32 bake's 0.097 cell), so four need a bake of 16 (cell 0.2)
+GROUPED_PARITY_BAKE = 16
+GROUPED_CLI_VIEWS = (("train", 2, 800), ("test", 1, 200))
+GROUPED_CLI_RADIANCE = 80
+# the CLI's grouped flags, and bench.py's fast knobs with the eval's
+# prepass (12: the shrunk box keeps the march's contract), without which
+# the secondary march has no window to group
+GROUPED_CLI_FLAGS = ["--march_group", "4", "--second_march_group", "4",
+                     "--group_bake_reso", "64", "--secondary_app_hoist", "1",
+                     "--second_window", "48", "--second_window_back", "16",
+                     "--second_prepass_n", "12", "--coarse_dilate", "3",
+                     "--secondary_compact_frac", "0.5625",
+                     "--secondary_bake_reso", "128", "--app_bake_reso", "64"]
+
+
+def phase_grouped_step_parity():
+    """One deterministic step of bench.py's configuration at its CPU sizes
+    (grid 48, 256 rays, 4x8 directions, window 12/4, tile 1024, bake 32,
+    app bake 32) with 24 secondary samples and a march cap of 32 (below the
+    64 samples, so that the grouped primary selection runs), the pair cap
+    lifted, for each grouped knob of GROUPED_KNOBS (the 4-sample secondary
+    group on a bake of GROUPED_PARITY_BAKE), card (kernels) vs CPU (plain
+    versions) from the same masked field made on the CPU. Tolerances:
+    those of variants_step_parity (loss 1e-4 relative, every gradient 1e-3
+    relative in the L2 norm)."""
+    loss_tol, grad_tol = 1e-4, 1e-3
+    fcfg, st, w, sizes = bench_setup(full=False)
+    st = dict(st, secondary_bake_reso=32, second_n_sample=24, march_cap=32,
+              app_pair_frac=1.0, deterministic=True)
+    params0, scene0 = bench_field(fcfg, sizes, seed=6, device="cpu")
+    res, fails = {}, []
+    for name, knobs in GROUPED_KNOBS:
+        if knobs.get("group_bake_reso"):
+            knobs = dict(knobs, group_bake_reso=GROUPED_PARITY_BAKE)
+        runs = {dev: _step_on(dev, params0, scene0,
+                              lambda d: make_bench_step(fcfg, st, w, d,
+                                                        **knobs),
+                              sizes["B"], 0, lambda p, s: [])
+                for dev in ("cuda", "cpu")}
+        (l_gpu, n_acc, _, g_gpu, _), (l_cpu, _, _, g_cpu, _) = (
+            runs["cuda"], runs["cpu"])
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        g_rel = _grad_rel_err(g_gpu, g_cpu)
+        res[name] = {"knobs": knobs, "loss_cuda": l_gpu, "loss_cpu": l_cpu,
+                     "loss_rel_err": rel, "n_acc_masked": n_acc,
+                     "grad_rel_err_max": max(g_rel.values()),
+                     "worst_grad": max(g_rel, key=g_rel.get)}
+        if not (math.isfinite(l_gpu) and rel <= loss_tol):
+            fails.append(f"{name} loss {l_gpu} vs {l_cpu}: {rel}")
+        over = {k: v for k, v in g_rel.items() if v > grad_tol}
+        if over:
+            fails.append(f"{name} gradients over {grad_tol}: {over}")
+    emit({"phase": "grouped_step_parity", "ok": not fails, "fails": fails,
+          "variants": res, "grid": sizes["grid"], "n_rays": sizes["B"],
+          "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol}})
+    check(not fails, "grouped_step_parity: " + "; ".join(fails))
+
+
+def phase_grouped_train():
+    """bench.py's step at full width (bench_setup(full=True): grid 200^3,
+    700 samples, march cap 192, 4096 relit rays, window 48/16, 36 tiles of
+    32768, bake 128, app bake 64), deterministic, in one process, without a
+    grouped knob and then with each of GROUPED_KNOBS, every one from a copy
+    of the same masked field: the first step's loss beside the ungrouped
+    one's and its march_overflow_frac, 2 warm-up steps, GROUPED_TRAIN_STEPS
+    timed steps (launch counts zeroed just before them, and by shape), the
+    peak memory, one profiled step (device-busy ms). The secondary
+    grouping on the step's own bake and the hoist must give the ungrouped
+    loss within 1e-4 relative (grouped equals ungrouped up to the order of
+    sums); a primary grouping must where neither march overflows its cap;
+    a grouping on a 27-corner pack baked coarser (group_bake_reso 64
+    against the 128 of the 8-corner pack) reads another proxy of the field,
+    and it and an overflowing primary grouping are reported, not held.
+    Every grouped step must launch the 16-corner block rows (K1-f32 and K2,
+    with march_group) or the 27-corner rows (K1-bf16, with
+    second_march_group) at their shapes. Returns (launch counts of the
+    grouped steps, launches by shape)."""
+    import torch
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.models import field as F
+    fcfg, st, w, sizes = bench_setup(full=True)
+    st = dict(st, deterministic=True)
+    B, g200 = sizes["B"], sizes["grid"]
+    params0, scene0 = bench_field(fcfg, sizes, seed=0, device="cuda")
+    contracts = {g: F.check_pair_contract(
+        AABB, (reso - 2,) * 3 + (F.PAIR_ROW,), n_sample=st["second_n_sample"],
+        group=g) for g, reso in ((2, st["secondary_bake_reso"]), (4, 64))}
+    batch = batch_of(B, "cuda")
+    total, shapes, fails, base = {}, {}, [], None
+    # the ungrouped step first and again last: the host's clock drifts
+    # within a run (PERF.md), and the two bracket the grouped steps' times
+    for name, knobs in (("ungrouped", {}),) + GROUPED_KNOBS + (
+            ("ungrouped_again", {}),):
+        params, scene = _to(params0, "cuda"), _to(scene0, "cuda")
+        opt, step_fn = make_bench_step(fcfg, st, w, "cuda", **knobs)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, m0 = step_fn(params, state, scene, batch, None, 10000)
+        first = {"loss": float(m0["total_loss"]),
+                 "march_overflow_frac": float(m0["march_overflow_frac"])}
+        it = 10001
+        params, state, m = step_fn(params, state, scene, batch, None, it)
+        it += 1
+        torch.cuda.synchronize()
+        counts = {}
+        path = "grouped_train" if knobs else "grouped_train_ungrouped"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with kernel_calls(path, counts):
+            for _ in range(GROUPED_TRAIN_STEPS):
+                params, state, m = step_fn(params, state, scene, batch, None,
+                                           it)
+                it += 1
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / GROUPED_TRAIN_STEPS * 1e3
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        brk = emit_breakdown(f"grouped_train_{name}_breakdown",
+                             lambda: step_fn(params, state, scene, batch,
+                                             None, it), step_ms)
+        res = {"phase": "grouped_train", "variant": name, "knobs": knobs,
+               "step_ms": step_ms, "device_busy_ms": brk.get(
+                   "device_busy_ms"), "idle_share": brk.get("idle_share"),
+               "peak_mem_gb": peak, "first_step": first,
+               "launches": launches,
+               "launches_by_shape": by_shape(counts, GROUPED_TRAIN_STEPS)}
+        mine = []
+        if base is None:
+            base = first
+        else:
+            rel = abs(first["loss"] - base["loss"]) / abs(base["loss"])
+            res["loss_ungrouped"] = base["loss"]
+            res["loss_rel_to_ungrouped"] = rel
+            overflow = (first["march_overflow_frac"] > 0
+                        or base["march_overflow_frac"] > 0)
+            # a 27-corner pack baked at another resolution than the
+            # 8-corner one is another proxy of the field: reported
+            held = not ((knobs.get("march_group") and overflow)
+                        or knobs.get("group_bake_reso", 0) not in (
+                            0, st["secondary_bake_reso"]))
+            res["loss_held"] = held
+            if held and not rel <= 1e-4:
+                mine.append(f"loss {first['loss']} vs ungrouped "
+                            f"{base['loss']}: {rel}")
+            for k, n in counts.items():
+                shapes[k] = shapes.get(k, 0) + n
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        if knobs.get("march_group"):
+            g = knobs["march_group"]
+            want = ((g200 - 3) ** 2, 16 * fcfg.density_n_comp[0],
+                    B * st["march_cap"] // g)
+            at = {k: counts.get((path, k, *want), 0)
+                  for k in ("row_gather", "row_scatter_add")}
+            res["block16_launches_per_step"] = {
+                k: v / GROUPED_TRAIN_STEPS for k, v in at.items()}
+            if not all(at.values()):
+                mine.append(f"16-corner rows {want} not launched: {at}")
+        if knobs.get("second_march_group"):
+            g = knobs["second_march_group"]
+            reso = knobs.get("group_bake_reso") or st["secondary_bake_reso"]
+            want = ((reso - 2) ** 3, F.PAIR_ROW,
+                    st["secondary_tile"] * st["second_window"] // g)
+            n = counts.get((path, "row_gather_bf16", *want), 0)
+            res["pair27_launches_per_step"] = n / GROUPED_TRAIN_STEPS
+            if not n:
+                mine.append(f"27-corner rows {want} not launched")
+        if not all(math.isfinite(float(x)) for x in (m["total_loss"],)):
+            mine.append(f"non-finite loss {float(m['total_loss'])}")
+        res["ok"] = not mine
+        emit(res)
+        fails += [f"{name}: {f}" for f in mine]
+        del params, scene, state, opt, step_fn, m, m0
+        torch.cuda.empty_cache()
+    emit({"phase": "grouped_train_contracts", "pair_contract_ratio":
+          {str(g): r for g, r in contracts.items()}})
+    check(not fails, "grouped_train: " + "; ".join(fails))
+    return total, shapes
+
+
+class _Tee:
+    """Text written to it goes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def phase_grouped_cli():
+    """``python -m tensoir_tpu_torch.train_tensoir`` on
+    configs/single_light/armadillo.txt at full width, in this process, with
+    GROUPED_CLI_FLAGS (every grouped knob, on bench.py's fast knobs) on a
+    rotated-lights scene written to a temporary directory
+    (GROUPED_CLI_VIEWS): GROUPED_CLI_RADIANCE radiance iterations, the mask
+    with the shrink, the upsample to 300^3 three iterations later, relight
+    iterations to GROUPED_CLI_RADIANCE + 8 (an eval of the 200 x 200 view
+    at the last), ckpt_final and the final render_test; the loop's group
+    resolutions and downgrade lines; then render-only from ckpt_final,
+    whose metrics must equal the run's bit for bit. Then a second short run
+    at ``--downsample_train 2`` over the same 800 x 800 PNGs, which the
+    loader resizes to 400 x 400 on load (Lanczos, as PIL). Launch counts
+    from 0 before the first run to the end of the second; every kernel must
+    launch. Returns (launch counts, launches by shape)."""
+    import io
+    import torch
+    from tensoir_tpu_torch import train_tensoir
+    from tensoir_tpu_torch.data import get_dataset
+    from tensoir_tpu_torch.data.synthetic import write_shadow_scene
+    from tensoir_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from tensoir_tpu_torch.train import loop
+    n_iters = GROUPED_CLI_RADIANCE + 8
+    resolved, shapes, fails = [], {}, []
+    saved = {name: getattr(loop, name) for name in (
+        "resolve_march_group", "resolve_primary_march_group")}
+
+    def recorder(name):
+        def run(*args):
+            out = saved[name](*args)
+            resolved.append({"resolver": name, "grid": list(args[2]),
+                             "aabb": np.asarray(args[1]).tolist(),
+                             "group": out})
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, hdr = os.path.join(tmp, "scene"), os.path.join(tmp, "hdr")
+        write_shadow_scene(data, hdr, views=GROUPED_CLI_VIEWS)
+        logs = os.path.join(tmp, "log")
+        argv = ["--config", str(CONFIG), "--datadir", data, "--hdrdir", hdr,
+                "--basedir", logs, *GROUPED_CLI_FLAGS,
+                "--n_iters", str(n_iters), "--update_AlphaMask_list",
+                f"[{GROUPED_CLI_RADIANCE}]", "--upsamp_list",
+                f"[{GROUPED_CLI_RADIANCE + 3}]", "--N_vis", "1",
+                "--vis_every", str(n_iters), "--test_number", "1"]
+        log, printed = {"events": [], "steps": []}, io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for name in saved:
+            setattr(loop, name, recorder(name))
+        t0 = time.perf_counter()
+        try:
+            with _run_probe(loop, log), kernel_calls("grouped_cli", shapes), \
+                    contextlib.redirect_stdout(_Tee(sys.stderr, printed)):
+                trained = train_tensoir.main(argv)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                ckpt = os.path.join(logs, "armadillo", "ckpt_final.npz")
+                t1 = time.perf_counter()
+                again = train_tensoir.main(argv + [
+                    "--render_only", "1", "--render_test", "1", "--ckpt",
+                    ckpt])
+                torch.cuda.synchronize()
+                render_only_s = time.perf_counter() - t1
+                # the resize on load: the 800 x 800 PNGs as 400 x 400 views
+                t1 = time.perf_counter()
+                small = get_dataset("tensoIR_unknown_rotated_lights")(
+                    data, hdr, split="train", downsample=2.0,
+                    light_rotation=("000",))
+                load_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                down = train_tensoir.main([
+                    "--config", str(CONFIG), "--datadir", data, "--hdrdir",
+                    hdr, "--basedir", os.path.join(tmp, "down"),
+                    "--downsample_train", "2", "--n_iters", "12",
+                    "--update_AlphaMask_list", "[100]", "--upsamp_list",
+                    "[100]", "--N_vis", "0", "--render_test", "0"])
+                torch.cuda.synchronize()
+                down_s = time.perf_counter() - t1
+        finally:
+            for name, fn in saved.items():
+                setattr(loop, name, fn)
+        launches = dict(LAUNCHES)
+    lines = [ln for ln in printed.getvalue().splitlines()
+             if "grouped" in ln and "downgraded" in ln]
+    final = trained.get("imgs_test_all")
+    res = {"phase": "grouped_cli", "flags": GROUPED_CLI_FLAGS,
+           "views": [list(v) for v in GROUPED_CLI_VIEWS], "n_iters": n_iters,
+           "run_s": run_s, "render_only_s": render_only_s,
+           "segments": _segments(log["steps"]),
+           "events": [e for e in log["events"] if e["event"] != "rebuild"],
+           "resolved_groups": resolved, "downgrade_lines": lines,
+           "final_render_test": final,
+           "render_only_test": again.get("imgs_test_all"),
+           "downsample_train_2": {"img_wh": list(small.img_wh),
+                                  "rays": int(small.all_rays.shape[0]),
+                                  "load_s": load_s, "run_s": down_s,
+                                  "result": down},
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if final is None or final != again.get("imgs_test_all"):
+        fails.append(f"render-only metrics {res['render_only_test']} differ "
+                     f"from the run's {final}")
+    elif not math.isfinite(final["psnr_nvs_brdf"]):
+        fails.append(f"metrics {final}")
+    kinds = {r["resolver"] for r in resolved}
+    if kinds != set(saved):
+        fails.append(f"the loop resolved only {sorted(kinds)}")
+    groups = [r["group"] for r in resolved]
+    if not any(groups):
+        fails.append(f"no grouped march was legal in any phase: {resolved}")
+    downgraded = [r for r in resolved if r["group"] != 4]
+    if len(lines) != len(downgraded):
+        fails.append(f"{len(downgraded)} downgrades, {len(lines)} lines")
+    if tuple(small.img_wh) != (400, 400) or not np.isfinite(
+            small.all_rgbs).all():
+        fails.append(f"downsample 2 loaded {small.img_wh}")
+    if not all(v > 0 for v in launches.values()):
+        fails.append(f"a kernel was not launched: {launches}")
+    res["ok"] = not fails
+    emit(res)
+    check(not fails, "grouped_cli: " + "; ".join(fails))
+    return launches, shapes
+
+
+def grouped_kernel_cases() -> dict:
+    """The grouped marches' rows at bench.py's full-width shapes, each
+    kernel against its plain version: K1-f32 at the 16-corner block rows
+    of a density plane (197^2 rows of 16 x 16 floats, 1 KB, at the 4096
+    rays x 192 / g groups) and K2 at their gradient; K1-bf16 at the
+    27-corner rows of the 128 bake (126^3 rows, a tile of 32768 pairs x 48
+    / 2 samples) and of the 64 bake (62^3, 48 / 4), each as 27 bf16 (54 B,
+    K1's element-per-thread route) and padded to 32 (64 B, its 16-byte
+    route). ``pair_b*_g*`` without a width is the width the port stores
+    (``field.PAIR_ROW``). Returns (the block-row cases by group size, the
+    27-corner cases)."""
+    from tensoir_tpu_torch.models.field import PAIR_ROW
+    rows = (200 - 3) ** 2
+    block = {g: kernel_case(rows, 256, 4096 * 192 // g, seed=120 + g)
+             for g in (2, 4)}
+    pair = {}
+    for i, (reso, g) in enumerate(((128, 2), (64, 4))):
+        for c in (27, 32):
+            pair[f"pair_b{reso}_g{g}_c{c}"] = bf16_gather_case(
+                (reso - 2) ** 3, 32768 * 48 // g, seed=130 + 2 * i + c,
+                C=c)
+        pair[f"pair_b{reso}_g{g}"] = pair[f"pair_b{reso}_g{g}_c{PAIR_ROW}"]
+    return block, pair
+
+
 def phase_mesh_export(ckpt: str):
     """``python -m tensoir_tpu_torch.scripts.export_mesh`` on train_run's
     ckpt_final, in this process: the dense alpha at the field's own grid
@@ -4105,18 +4507,27 @@ PATH_CASES = {
     **{path: {name: (path, name) for name in KERNEL_SOURCES}
        for path in ("variants_train_vm_stacked", "variants_train_vm",
                     "variants_cli_vm_stacked")},
+    # the grouped knobs: bench.py's steps at their new rows (the 16-corner
+    # block rows of march_group 4 and their gradient, the 27-corner rows of
+    # the 64 bake at second_march_group 4), and the CLI run's busiest shapes
+    "grouped_train": {
+        "row_gather": ("grouped_block16_g4", "row_gather"),
+        "row_gather_bf16": ("grouped_pair", "pair_b64_g4"),
+        "row_scatter_add": ("grouped_block16_g4", "row_scatter_add")},
+    "grouped_cli": {name: ("grouped_cli", name) for name in KERNEL_SOURCES},
 }
 VARIANT_PATHS = ("variants_train_cp", "variants_train_vm_stacked",
                  "variants_train_vm", "variants_cli_cp",
                  "variants_cli_vm_stacked")
 NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general",
-             "dp_nccl", "dp_gloo2", "dp_run", "dp_launch", *VARIANT_PATHS)
+             "dp_nccl", "dp_gloo2", "dp_run", "dp_launch", *VARIANT_PATHS,
+             "grouped_cli")
 # the path whose numbers lead each kernel's summary entry: the CLI run
 # (training, the evals, render-only), the one path that runs all three
 # kernels (K2 does not launch on the relight path)
 MAIN_PATH = "cli_run"
 _OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run", "relight",
-                     "relight_fast", *NEW_PATHS)
+                     "relight_fast", "grouped_pair", *NEW_PATHS)
 
 
 def kernel_summary(cases, launches, shapes, chunks) -> list:
@@ -4160,10 +4571,12 @@ def main(argv) -> int:
     steps_only = argv == ["--steps"]
     launch_only = argv == ["--dp-launch"]
     variants_only = argv == ["--variants"]
+    grouped_only = argv == ["--grouped"]
     child = len(argv) == 3 and argv[0] == "--dp-child"
-    if argv and not (steps_only or launch_only or variants_only or child):
+    if argv and not (steps_only or launch_only or variants_only
+                     or grouped_only or child):
         print("usage: python3 chip_smoke.py [--steps | --dp-launch | "
-              "--variants]", file=sys.stderr)
+              "--variants | --grouped]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4191,6 +4604,8 @@ def main(argv) -> int:
             return _run_launch(work, t_start)
         if variants_only:
             return _run_variants(t_start)
+        if grouped_only:
+            return _run_grouped(t_start)
         return _run(steps_only, work, t_start, streams, launches, shapes)
 
 
@@ -4206,6 +4621,43 @@ def _run_variants(t_start: float) -> int:
     print(f"# total seconds {time.perf_counter() - t_start:.1f}",
           file=sys.stderr)
     return 0
+
+
+def _run_grouped(t_start: float) -> int:
+    """--grouped: the build, the three grouped phases and the grouped
+    marches' kernel rows only; it ends after them without the summary or
+    the last line."""
+    try:
+        phase_build()
+        _grouped_phases()
+        block, pair = grouped_kernel_cases()
+        emit({"phase": "grouped_kernels", "ok": True,
+              "block16": {f"g{g}": c for g, c in block.items()},
+              "pair": pair})
+    except SmokeFailure as exc:
+        emit({"ok": False, "failure": str(exc)})
+        return 1
+    print(f"# total seconds {time.perf_counter() - t_start:.1f}",
+          file=sys.stderr)
+    return 0
+
+
+def _grouped_phases():
+    """grouped_step_parity, grouped_train, grouped_cli: (launch counts per
+    path, launches by shape), each phase's seconds on stderr."""
+    launches, shapes = {}, {}
+    t0 = time.perf_counter()
+    phase_grouped_step_parity()
+    print(f"# grouped_step_parity seconds {time.perf_counter() - t0:.1f}",
+          file=sys.stderr, flush=True)
+    for name, run in (("grouped_train", phase_grouped_train),
+                      ("grouped_cli", phase_grouped_cli)):
+        t0 = time.perf_counter()
+        launches[name], counts = run()
+        shapes.update(counts)
+        print(f"# {name} seconds {time.perf_counter() - t0:.1f}",
+              file=sys.stderr, flush=True)
+    return launches, shapes
 
 
 def _variant_phases():
@@ -4292,6 +4744,9 @@ def _run(steps_only: bool, work: str, t_start: float, streams: dict,
         launches.update(counts_by_path)
         shapes.update(counts)
         counts_by_path, counts = _variant_phases()
+        launches.update(counts_by_path)
+        shapes.update(counts)
+        counts_by_path, counts = _grouped_phases()
         launches.update(counts_by_path)
         shapes.update(counts)
         torch.cuda.empty_cache()    # the gloo ranks share this card

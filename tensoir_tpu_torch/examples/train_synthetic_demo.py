@@ -56,14 +56,12 @@ def parse_args(argv=None):
                         help="per-light radiance-feature bake resolution for "
                              "the secondary appearance path (0=exact VM)")
     parser.add_argument("--march_group", type=int, default=0,
-                        help="grouped secondary march (0/1=off; the port "
-                             "refuses > 1)")
+                        help="grouped secondary march (0/1=off)")
     parser.add_argument("--group_bake", type=int, default=0,
                         help="bake resolution of the grouped march's block "
                              "rows (0=secondary_bake_reso)")
     parser.add_argument("--primary_group", type=int, default=0,
-                        help="grouped primary march (0/1=off; the port "
-                             "refuses > 1)")
+                        help="grouped primary march (0/1=off)")
     parser.add_argument("--app_cap_secondary", type=int, default=16,
                         help="app samples per selected secondary pair (k)")
     parser.add_argument("--pair_frac", type=float, default=0.0,

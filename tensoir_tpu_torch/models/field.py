@@ -1,7 +1,8 @@
 """The TensoIR radiance field (port of tensoir_tpu.models.field: config,
 init, the queries of the training step, derived normals, the alpha mask,
 the baked sigma grid (optionally on factors resized to a coarser grid) with
-its coarse occupancy, and the baked per-light appearance grid).
+its coarse occupancy, the 27-corner pack of the grouped secondary march,
+and the baked per-light appearance grid).
 
 Three decompositions, as in the JAX package:
 * ``vm``: per axis a plane [H, W, R] and a line [D, R], for density and
@@ -18,7 +19,10 @@ Every plane lookup goes through the corner-packed row gather K1 on f32
 rows (a stacked slice is packed into a contiguous table first); line
 lookups are products with a two-tap matrix; the corner-packed trilinear
 lookups (alpha mask, baked sigma grid, baked appearance grid) go through
-K1 on bf16 rows. ``compute_dtype`` ``bfloat16`` rounds the operands of the
+K1 on bf16 rows. The grouped lookups read one row per group of nearby
+points: a 16-corner f32 block row of a plane (primary march) or a
+27-corner bf16 block row of the baked grid (secondary march).
+``compute_dtype`` ``bfloat16`` rounds the operands of the
 basis and MLP products to bf16 and keeps their results in f32.
 """
 from __future__ import annotations
@@ -35,7 +39,8 @@ from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.kernels import row_gather
 from tensoir_tpu_torch.models import lighting, mlps
 from tensoir_tpu_torch.models.mlps import dot
-from tensoir_tpu_torch.ops.interp import (bilerp_plane_packed,
+from tensoir_tpu_torch.ops.interp import (bilerp_plane_group_packed,
+                                          bilerp_plane_packed,
                                           lerp_line_matmul,
                                           resize_bilinear_align_corners,
                                           resize_line_align_corners,
@@ -200,6 +205,15 @@ def step_size(aabb, grid_size: Tuple[int, int, int], step_ratio: float):
     return (units[0] + units[1] + units[2]) * (1.0 / 3.0) * step_ratio
 
 
+def num_samples_for(aabb_np, grid_size, step_ratio: float) -> int:
+    """Static sample count on the host: diag / step + 1, in float64."""
+    aabb_np = np.asarray(aabb_np).reshape(2, 3)
+    size = aabb_np[1] - aabb_np[0]
+    units = size / (np.asarray(grid_size, np.float64) - 1.0)
+    step = float(np.mean(units) * step_ratio)
+    return int(float(np.linalg.norm(size)) / step) + 1
+
+
 # ------------------------------------------------------------------- queries
 
 def density_factors(cfg: FieldConfig, params: Dict, i: int):
@@ -248,6 +262,25 @@ def density_feature(cfg: FieldConfig, params: Dict, coords):
         plane, line = density_factors(cfg, params, i)
         lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
         pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
+        total = total + (pf * lf).sum(-1)
+    return total
+
+
+def density_feature_grouped(cfg: FieldConfig, params: Dict, coords_g):
+    """``density_feature`` for groups of depth-adjacent samples, coords_g
+    [..., g, 3] -> [..., g]: the lines as products, the planes through one
+    16-corner block row per group (``bilerp_plane_group_packed``); equal
+    to the per-sample feature up to the order of the sums while each
+    group stays inside its 3 x 3-cell block. VM and ``vm_stacked`` only."""
+    if cfg.decomp not in ("vm", "vm_stacked"):
+        raise ValueError(f"no grouped density for decomp {cfg.decomp!r}")
+    total = coords_g.new_zeros(coords_g.shape[:-1])
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        plane, line = density_factors(cfg, params, i)
+        lf = lerp_line_matmul(line, coords_g[..., VEC_MODE[i]])
+        pf = bilerp_plane_group_packed(plane, coords_g[..., m0],
+                                       coords_g[..., m1])
         total = total + (pf * lf).sum(-1)
     return total
 
@@ -345,6 +378,12 @@ def bake_sigma_feature_grid(cfg: FieldConfig, params: Dict) -> torch.Tensor:
     return out + torch.einsum("zyr,xr->zyx", p2, l2)
 
 
+def density_feature_baked(baked: torch.Tensor, aabb, xyz) -> torch.Tensor:
+    """Trilinear lookup of a dense baked sigma-feature grid [Z, Y, X] at
+    world points [..., 3]."""
+    return trilerp_volume(baked, normalize_coord(aabb, xyz))
+
+
 def _mask_at_grid_nodes(scene: Dict, grid_xyz: Tuple[int, int, int]):
     """The alpha mask resampled onto the factor grid's nodes, [Z, Y, X], by
     three 1-D linear-interpolation matrices (the mask lives on
@@ -417,6 +456,119 @@ def bake_packed_sigma_grid(cfg: FieldConfig, params: Dict, scene: Dict,
     gradients."""
     return pack_corner_volume(_bake_masked_dense(cfg, params, scene, max_reso),
                               dtype)
+
+
+# the 27-corner rows of the grouped march are stored this wide: 27 bf16
+# corners and 5 zero channels, 64 bytes, a row K1 copies in four 16-byte
+# pieces per thread. A 54-byte row is not a multiple of 16 and takes its
+# element-per-thread route: on an H100 (chip_smoke.py's kernels phase) 25 %
+# slower on the 2M-row table of a 128 bake, 9 % faster on the 238k rows of
+# a 64 bake, which fit the L2
+PAIR_ROW = 32
+
+
+@torch.no_grad()
+def bake_pair_packed_sigma_grid(cfg: FieldConfig, params: Dict, scene: Dict,
+                                dtype=torch.bfloat16,
+                                max_reso: int = 0) -> torch.Tensor:
+    """27-corner (2 x 2 x 2-cell block) pack of the masked dense bake, for
+    the grouped secondary march: one row serves a group of adjacent window
+    samples. The same dense grid as ``bake_packed_sigma_grid``, another
+    packing."""
+    return pack_corner27_grid(
+        _bake_masked_dense(cfg, params, scene, max_reso), dtype)
+
+
+def pack_corner27_grid(masked_dense: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Block-pack a dense grid [Z, Y, X] into [Z-2, Y-2, X-2, PAIR_ROW]
+    rows holding the 3 x 3 x 3 nodes of each 2 x 2 x 2-cell block in
+    channel order 9*dz + 3*dy + dx, then zero channels. Each slice is
+    converted to ``dtype`` on its own, so no [.., 27] f32 temporary is
+    made."""
+    Z, Y, X = masked_dense.shape
+    out = masked_dense.new_zeros((Z - 2, Y - 2, X - 2, PAIR_ROW),
+                                 dtype=dtype)
+    c = 0
+    for dz in (0, 1, 2):
+        for dy in (0, 1, 2):
+            for dx in (0, 1, 2):
+                out[..., c] = masked_dense[dz:Z - 2 + dz, dy:Y - 2 + dy,
+                                           dx:X - 2 + dx]
+                c += 1
+    return out
+
+
+def density_feature_group_packed(packed27: torch.Tensor,
+                                 coords: torch.Tensor) -> torch.Tensor:
+    """Trilinear sigma features of groups of nearby points, coords
+    [..., g, 3] normalized on the unpacked grid -> [..., g]: ONE K1 row of
+    the 27-corner pack per group (read as f32; the pad channels are cut off
+    after the gather). The block starts at the group's smallest cell,
+    clamped to the grid; each point's offset in it is clamped to [0, 1], so
+    a group wider than one cell per axis (a broken ``check_pair_contract``)
+    reads clamped cells, not another block. Equal to
+    ``density_feature_packed`` on each point, up to the order of the
+    sums, within the contract."""
+    Zb, Yb, Xb, K = packed27.shape
+    Zc, Yc, Xc = Zb + 1, Yb + 1, Xb + 1   # cell counts of the fine grid
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
+    fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
+    fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
+    ix = torch.floor(fx).clamp(0, Xc - 1)
+    iy = torch.floor(fy).clamp(0, Yc - 1)
+    iz = torch.floor(fz).clamp(0, Zc - 1)
+    wx, wy, wz = fx - ix, fy - iy, fz - iz
+    bx = ix.amin(-1).clamp(0, Xc - 2)
+    by = iy.amin(-1).clamp(0, Yc - 2)
+    bz = iz.amin(-1).clamp(0, Zc - 2)
+    ox = (ix - bx[..., None]).clamp(0.0, 1.0)
+    oy = (iy - by[..., None]).clamp(0.0, 1.0)
+    oz = (iz - bz[..., None]).clamp(0.0, 1.0)
+
+    def axis_weights(off, w):
+        # the point's cell starts at block node `off`: node off gets 1 - w,
+        # node off + 1 gets w
+        at0 = off == 0.0
+        zero = w.new_zeros(())
+        return torch.stack([torch.where(at0, 1.0 - w, zero),
+                            torch.where(at0, w, 1.0 - w),
+                            torch.where(at0, zero, w)], -1)     # [..., g, 3]
+
+    uz, uy, ux = axis_weights(oz, wz), axis_weights(oy, wy), \
+        axis_weights(ox, wx)
+    w27 = (uz[..., :, None, None] * uy[..., None, :, None]
+           * ux[..., None, None, :]).reshape(*uz.shape[:-1], 27)
+    i32 = torch.int32
+    idx = (bz.to(i32) * Yb + by.to(i32)) * Xb + bx.to(i32)
+    rows = row_gather(packed27.reshape(Zb * Yb * Xb, K), idx.reshape(-1))
+    rows = rows[:, :27].float().reshape(*idx.shape, 1, 27)
+    return (rows * w27).sum(-1)
+
+
+def check_pair_contract(aabb_np, packed_shape, *, n_sample: int, group: int,
+                        vis_near: float = 0.05,
+                        vis_far: float = 1.5) -> float:
+    """The grouped march's contract, on the host: a group of ``group``
+    consecutive window samples spans (group - 1) fine steps, which must not
+    exceed the smallest bake cell, so that every sample's cell is at most
+    one from the group's smallest and one 2 x 2 x 2-cell block holds them
+    all. ``packed_shape`` is the 27-corner pack's (cell counts - 1).
+    Raises ValueError when it is broken; returns cell / span (>= 1 is
+    safe)."""
+    aabb_np = np.asarray(aabb_np, np.float64).reshape(2, 3)
+    extents = aabb_np[1] - aabb_np[0]
+    cells = np.asarray(packed_shape[:3], np.float64)[::-1] + 1.0  # X, Y, Z
+    cell = float(np.min(extents / cells))
+    span = (group - 1) * (vis_far - vis_near) / max(n_sample - 1, 1)
+    if span > cell:
+        raise ValueError(
+            f"grouped-march contract violated: group span {span:.5f} > min "
+            f"bake cell {cell:.5f} (n_sample={n_sample}, group={group}, "
+            f"cells={cells}, extents={extents}) — lower second_march_group "
+            f"or the pair-bake reso")
+    return cell / span
 
 
 @torch.no_grad()

@@ -13,3 +13,9 @@ def raw2alpha(sigma: torch.Tensor, dist: torch.Tensor):
         torch.cat([torch.ones_like(one_minus[..., :1]), one_minus], -1), -1)
     weights = alpha * t_excl[..., :-1]
     return alpha, weights, t_excl[..., -1:]
+
+
+def raw2alpha_from_sigma(sigma: torch.Tensor, dist: torch.Tensor,
+                         distance_scale: float):
+    """``raw2alpha`` with the spacing scaled by ``distance_scale``."""
+    return raw2alpha(sigma, dist * distance_scale)

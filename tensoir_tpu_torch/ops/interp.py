@@ -5,7 +5,8 @@ volumes ``[D, H, W(, C)]``, coordinates normalized to [-1, 1] with
 ``align_corners=True`` (the plain plane lookup also takes the other
 convention and zero padding, for the lat-long environment maps). The
 corner-packed plane lookup gathers its rows through K1
-(``kernels.gather_rows``), whose backward is K2.
+(``kernels.gather_rows``), whose backward is K2; so does the grouped
+lookup, one 16-corner block row per group of nearby points.
 
 ``clip`` splits the gradient evenly at a tie with a bound, as ``jnp.clip``
 does (``torch.clamp`` passes all of it), so coordinate gradients at the
@@ -94,6 +95,15 @@ def bilerp_plane(plane: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             + corner(iy0 + 1, ix0 + 1, wy1 * wx1))
 
 
+def bilerp_image_nchw_like(image_hwc: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor,
+                           align_corners: bool) -> torch.Tensor:
+    """Bilinear lookup on an [H, W, C] image with either corner convention
+    (the lat-long environment-map queries): ``bilerp_plane`` with border
+    padding."""
+    return bilerp_plane(image_hwc, x, y, align_corners=align_corners)
+
+
 def _resize_positions(n: int, device) -> torch.Tensor:
     """The n node positions of an ``align_corners`` resize in [-1, 1], as
     ``jnp.linspace`` places them (a single node sits at 0)."""
@@ -175,6 +185,51 @@ def bilerp_plane_packed(plane: torch.Tensor, x: torch.Tensor,
     v00, v01, v10, v11 = rows.split(C, dim=-1)
     return ((1.0 - wy1) * ((1.0 - wx1) * v00 + wx1 * v01)
             + wy1 * ((1.0 - wx1) * v10 + wx1 * v11))
+
+
+def bilerp_plane_group_packed(plane: torch.Tensor, x: torch.Tensor,
+                              y: torch.Tensor) -> torch.Tensor:
+    """Bilinear plane lookup for GROUPS of nearby points through ONE
+    16-corner block row per group.
+
+    ``plane`` [H, W, C] (H, W >= 4) is packed into a [(H-3)(W-3), 16C]
+    table whose row holds the 4 x 4 nodes of a 3 x 3-cell block (node
+    order 4*dy + dx). x, y [..., g]: the trailing axis is the group. The
+    block starts at the group's smallest cell, clipped so that it fits the
+    plane; each point then weights its cell's four nodes inside the block
+    (a one-hot of its offset times the bilinear weight, per axis). The
+    result equals ``bilerp_plane_packed``'s, up to the order of the sums,
+    whenever every point of a group lies within the block: cell indices at
+    most 2 apart per axis, which ``render_rays`` checks as
+    (g-1) * step_ratio <= 2. K1 gathers the rows (16C floats: its wide
+    route) and K2 scatters their gradient; the weights are linear in the
+    clipped fractional offsets, so the lookup is twice differentiable in
+    the coordinates and the plane. Returns [..., g, C].
+    """
+    H, W, C = plane.shape
+    packed = torch.cat([plane[dy:H - 3 + dy, dx:W - 3 + dx]
+                        for dy in range(4) for dx in range(4)], -1)
+    packed = packed.reshape((H - 3) * (W - 3), 16 * C)
+    ix = _unnormalize(x, W, True)
+    iy = _unnormalize(y, H, True)
+    ix0 = torch.floor(ix).clamp(0, W - 2)
+    iy0 = torch.floor(iy).clamp(0, H - 2)
+    bx = ix0.amin(-1).clamp(0, W - 4)                            # [...]
+    by = iy0.amin(-1).clamp(0, H - 4)
+    idx = (by * (W - 3) + bx).to(torch.int32)
+    rows = gather_rows(packed, idx.reshape(-1))
+    rows = rows.reshape(*idx.shape, 4, 4, C)                     # dy, dx, C
+    ox = (ix0 - bx[..., None])[..., None]                        # [..., g, 1]
+    oy = (iy0 - by[..., None])[..., None]
+    wx1 = clip(ix - ix0, 0.0, 1.0)[..., None]
+    wy1 = clip(iy - iy0, 0.0, 1.0)[..., None]
+    iota = torch.arange(4, dtype=plane.dtype, device=plane.device)
+    zero = wx1.new_zeros(())
+    Wx = (torch.where(iota == ox, 1.0 - wx1, zero)
+          + torch.where(iota == ox + 1.0, wx1, zero))            # [..., g, 4]
+    Wy = (torch.where(iota == oy, 1.0 - wy1, zero)
+          + torch.where(iota == oy + 1.0, wy1, zero))
+    return torch.einsum("...ga,...gb,...abc->...gc", Wy, Wx, rows)
 
 
 def trilerp_volume(vol: torch.Tensor, coords: torch.Tensor,

@@ -1,7 +1,9 @@
-"""Ray marching primitives (port of tensoir_tpu.ops.rays, the parts the
-training step needs, the NDC march and warp included). Random jitter is
-passed in, not drawn here, so a test can hand both packages the same
-numbers."""
+"""Ray marching primitives (port of tensoir_tpu.ops.rays: the marches the
+training step needs, the NDC march and warp, the ray/AABB test, inverse-CDF
+sampling and the spherical-coordinate helpers of the light-probe tooling).
+The marches' random jitter is passed in, not drawn here, so a test can
+hand both packages the same numbers; ``sample_pdf`` draws from a
+``torch.Generator``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,6 +19,17 @@ def aabb_ray_tmin(rays_o, rays_d, aabb, near: float, far: float):
     rate_b = (aabb[0] - rays_o) / vec
     t_min = torch.minimum(rate_a, rate_b).amax(-1)
     return t_min.clamp(near, far)
+
+
+def aabb_intersect(rays_o, rays_d, aabb):
+    """(t_min, t_max, hit) of each ray with the AABB: the ``bbox_only`` ray
+    filter's test."""
+    vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = torch.minimum(rate_a, rate_b).amax(-1)
+    t_max = torch.maximum(rate_a, rate_b).amin(-1)
+    return t_min, t_max, t_max > t_min
 
 
 def sample_ray(rays_o, rays_d, aabb, near: float, far: float, step_size,
@@ -111,3 +124,74 @@ def safe_l2_normalize(x, dim: int = -1, eps: float = 1e-6):
     """x / max(||x||, eps), with a zero (not NaN) gradient at x = 0."""
     sq = (x * x).sum(dim, keepdim=True)
     return x / torch.sqrt(sq.clamp_min(eps * eps))
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               key: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverse-CDF sampling of bins [B, M+1] by weights [B, M] ->
+    [B, n_samples]: at ``n_samples`` evenly spaced quantiles in [0, 1]
+    with ``key=None`` (the deterministic path), else at uniform draws from
+    ``key``."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    shape = cdf.shape[:-1] + (n_samples,)
+    if key is None:
+        u = linspace(0.0, 1.0, n_samples, cdf.dtype,
+                     cdf.device).expand(shape).contiguous()
+    else:
+        u = torch.rand(shape, generator=key, dtype=cdf.dtype,
+                       device=cdf.device)
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp_min(0)
+    above = inds.clamp_max(cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    bins_g0 = torch.gather(bins, -1, below)
+    bins_g1 = torch.gather(bins, -1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def convert_sph_conventions(pts_r_angle1_angle2, what2what: str):
+    """Convert [n, 3] spherical coordinates between conventions, in numpy:
+    'lat-lng' is (r, latitude in [-pi/2, pi/2] from the equator, longitude
+    in [-pi, pi]), 'theta-phi' (r, polar angle in [0, pi] from +z, azimuth
+    in [0, 2 pi]); ``what2what`` is 'lat-lng_to_theta-phi' or
+    'theta-phi_to_lat-lng'."""
+    pts = np.asarray(pts_r_angle1_angle2)
+    out = np.zeros(pts.shape)
+    out[:, 0] = pts[:, 0]
+    out[:, 1] = np.pi / 2 - pts[:, 1]
+    if what2what == "lat-lng_to_theta-phi":
+        out[:, 2] = np.where(pts[:, 2] < 0, 2 * np.pi + pts[:, 2], pts[:, 2])
+        return out
+    if what2what == "theta-phi_to_lat-lng":
+        out[:, 2] = np.where(pts[:, 2] > np.pi, pts[:, 2] - 2 * np.pi,
+                             pts[:, 2])
+        return out
+    raise NotImplementedError(what2what)
+
+
+def sph2cart(pts_sph, convention: str = "lat-lng"):
+    """Spherical [n, 3] -> cartesian, in numpy: z = r sin(lat), x = r
+    cos(lat) cos(lng), y = r cos(lat) sin(lng); a 'theta-phi' input is
+    converted to 'lat-lng' first."""
+    pts_sph = np.asarray(pts_sph)
+    if pts_sph.ndim != 2 or pts_sph.shape[-1] != 3:
+        raise ValueError("shape of input must be (n, 3)")
+    if not (np.abs(pts_sph[:, 1:]) <= 2 * np.pi).all():
+        raise ValueError("input angle falls out of [-2pi, 2pi]")
+    if convention == "lat-lng":
+        p = pts_sph
+    elif convention == "theta-phi":
+        p = convert_sph_conventions(pts_sph, "theta-phi_to_lat-lng")
+    else:
+        raise NotImplementedError(convention)
+    r, lat, lng = p[:, 0], p[:, 1], p[:, 2]
+    return np.stack((r * np.cos(lat) * np.cos(lng),
+                     r * np.cos(lat) * np.sin(lng),
+                     r * np.sin(lat)), axis=-1)

@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -94,3 +95,15 @@ def all_reduce_mean(mesh: Mesh, means: List[torch.Tensor],
     out = [piece.view(t.shape).to(t.dtype) for piece, t in
            zip(flat.split([t.numel() for t in tensors]), tensors)]
     return out[:len(means)], out[len(means):]
+
+
+def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0):
+    """Zero-pad ``axis`` of ``arr`` up to a multiple of ``multiple``;
+    returns (padded, the unpadded length)."""
+    n = arr.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return arr, n
+    pad = [(0, 0)] * arr.ndim
+    pad[axis] = (0, rem)
+    return np.pad(arr, pad), n

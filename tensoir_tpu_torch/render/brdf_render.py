@@ -80,6 +80,7 @@ def render_with_brdf(
     coarse_dilate: int = 2,
     secondary_compact_frac: float = 0.0,
     second_march_group: int = 0,
+    group_bake_reso: int = 0,
     app_bake_reso: int = 0,
     secondary_app_hoist: bool = False,
     second_app_cap: int = 16,
@@ -118,7 +119,8 @@ def render_with_brdf(
         bake_reso=secondary_bake_reso, window=second_window,
         window_back=second_window_back, prepass_n=second_prepass_n,
         coarse_dilate=coarse_dilate, compact_frac=secondary_compact_frac,
-        march_group=second_march_group, app_bake_reso=app_bake_reso,
+        march_group=second_march_group, group_bake_reso=group_bake_reso,
+        app_bake_reso=app_bake_reso,
         app_hoist=secondary_app_hoist, app_pair_frac=app_pair_frac,
         return_stats=return_secondary_stats,
         window_probe=second_window_probe,

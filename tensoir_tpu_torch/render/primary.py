@@ -2,10 +2,13 @@
 
 A fixed-step march (or with ``ndc_ray`` the forward-facing NDC march:
 uniform z in [near, far]), or with ``march_cap`` the first ``march_cap``
-samples per ray that the dilated alpha mask marks occupied; density on
-every kept sample (zero outside the AABB and the alpha mask), compositing,
-then appearance and the shader (MLP_Fea, MLP_PE, MLP, SH or RGB) on a
-fixed per-ray top-k of samples by weight (``app_cap``). With
+samples per ray that the dilated alpha mask marks occupied (with
+``march_group`` g, the first march_cap / g groups of g consecutive samples
+with any member occupied, whose density reads one 16-corner block row per
+group); density on every kept sample (zero outside the AABB and the alpha
+mask), compositing, then appearance and the shader (MLP_Fea, MLP_PE, MLP,
+SH or RGB) on a fixed per-ray top-k of samples by weight (``app_cap``).
+With
 ``is_relight`` the same top-k samples also get the BRDF MLP, its jittered
 copy for the smoothness losses, and normals (derived from the density's
 gradient, predicted by the normal MLP from the BRDF inputs or, as a
@@ -115,6 +118,48 @@ def take_samples(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _select_groups(cfg: F.FieldConfig, valid_occ: torch.Tensor, select,
+                   march_cap: int, g: int, ndc_ray: bool):
+    """The grouped march's selection: the first march_cap / g groups of g
+    consecutive samples with any member occupied, expanded to their
+    members, (midx [B, march_cap], ray_valid [B, march_cap], overflow [B]).
+    A superset of the per-sample selection (a member that is not occupied
+    stays invalid), so the result is the per-sample march's on every ray
+    that does not overflow (more than march_cap / g occupied groups); the
+    members stay depth-adjacent, so that one block row serves a group.
+
+    The 16-corner block holds a group while its span (g - 1) * step is at
+    most 2 cells per axis: checked here as (g - 1) * step_ratio <= 2 for
+    near-isotropic cells, and against the live AABB's worst axis at each
+    phase rebuild by ``train.loop.resolve_primary_march_group``."""
+    if ndc_ray:
+        raise ValueError(
+            "march_group > 1 is not supported with ndc_ray=True: the "
+            "NDC march's sample spacing is not step_ratio-based, so the "
+            "3x3-cell block contract cannot be checked statically")
+    if march_cap % g:
+        raise ValueError(f"march_group={g} must divide "
+                         f"march_cap={march_cap}")
+    if (g - 1) * cfg.step_ratio > 2.0:
+        raise ValueError(
+            f"march_group={g} at step_ratio={cfg.step_ratio} "
+            f"violates the 16-corner block contract "
+            f"((g-1)*step_ratio = {(g - 1) * cfg.step_ratio:.2f} "
+            f"> 2 cells)")
+    B, S = valid_occ.shape
+    n_groups = -(-S // g)
+    vpad = torch.cat([valid_occ, valid_occ.new_zeros((B, n_groups * g - S))],
+                     1)
+    gvalid = vpad.reshape(B, n_groups, g).any(2)
+    gidx, gsel = select(gvalid, march_cap // g)
+    midx_raw = (gidx[..., None] * g + torch.arange(
+        g, device=gidx.device)).reshape(B, march_cap)
+    midx = midx_raw.clamp(max=S - 1)
+    ray_valid = (gsel.repeat_interleave(g, 1) & (midx_raw < S)
+                 & take_samples(valid_occ, midx))
+    return midx, ray_valid, gvalid.sum(1) > march_cap // g
+
+
 def render_rays(
     cfg: F.FieldConfig,
     params: Dict,
@@ -136,10 +181,6 @@ def render_rays(
     """The primary pass's maps of the rays [B, 6] under lights
     ``light_idx`` [B]. With ``cfg.normals_kind`` ``gt_normals`` the normals
     are zeros: ``render_train_batch`` puts the dataset's in their place."""
-    if march_group > 1:
-        raise NotImplementedError(
-            "march_group > 1 (grouped primary march): not ported yet "
-            "(ROADMAP queue 1 item 6d)")
     B = rays.shape[0]
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
     aabb = scene["aabb"]
@@ -181,16 +222,31 @@ def render_rays(
         select = (select_occupied_samples_scatter if march_select == "scatter"
                   else select_occupied_samples)
         valid_occ = ray_valid & F.sample_alpha_mask_nearest(scene, xyz)
-        out["march_overflow_frac"] = (
-            valid_occ.sum(1) > march_cap).float().mean()
-        midx, ray_valid = select(valid_occ, march_cap)
+        if march_group > 1:
+            midx, ray_valid, overflow = _select_groups(
+                cfg, valid_occ, select, march_cap, march_group, ndc_ray)
+        else:
+            overflow = valid_occ.sum(1) > march_cap
+            midx, ray_valid = select(valid_occ, march_cap)
+        # rays that keep fewer occupied samples than they have: the culled
+        # march is exact only on the others
+        out["march_overflow_frac"] = overflow.float().mean()
         coords = take_samples(coords, midx)
         z_vals = take_samples(z_vals, midx)
         dists = take_samples(dists, midx)
         xyz = take_samples(xyz, midx)
     ray_valid = ray_valid & (F.sample_alpha_mask(scene, xyz) > 0)
 
-    sigma_feat = F.density_feature(cfg, params, coords)
+    if (march_group > 1 and 0 < march_cap < n_samples
+            and cfg.decomp in ("vm", "vm_stacked")):
+        # one 16-corner block row per group of march_group samples; CP has
+        # no plane and keeps the per-sample density on the group selection
+        sigma_feat = F.density_feature_grouped(
+            cfg, params,
+            coords.reshape(B, march_cap // march_group, march_group, 3)
+        ).reshape(B, march_cap)
+    else:
+        sigma_feat = F.density_feature(cfg, params, coords)
     sigma = torch.where(ray_valid, F.feature2density(cfg, sigma_feat),
                         torch.zeros_like(sigma_feat))
     _, weight, _ = raw2alpha(sigma, dists * cfg.distance_scale)

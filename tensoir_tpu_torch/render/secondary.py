@@ -14,11 +14,12 @@ The pairs whose march picks up weight then get the radiance field's colour
 on their top-k samples, a fixed number of pairs per tile, from the VM
 factors or from the baked per-light appearance grid (one K1 row of bf16
 corners per sample). With ``compact_frac`` only the pairs above the
-horizon are marched, packed into a fixed number of tiles. The whole pass
-runs without gradients, tile by tile, and never waits on the device.
-
-Not ported yet, and raising: the grouped fine march and the global app
-stage.
+horizon are marched, packed into a fixed number of tiles. With
+``march_group`` the window march reads one K1 row of a 27-corner bf16 block
+pack per group of consecutive samples instead of one 8-corner row per
+sample; with ``app_hoist`` the tiles only march, and the colour of every
+tile's selected samples is computed at once after the last tile. The whole
+pass runs without gradients, tile by tile, and never waits on the device.
 """
 from __future__ import annotations
 
@@ -102,12 +103,19 @@ def window_indices(coarse: torch.Tensor, packed_shape, aabb, o, d, *,
 
 def _march_window(cfg, baked, coarse, aabb, o, d, *, n_sample: int,
                   vis_near: float, vis_far: float, window: int,
-                  prepass_n: int, window_back: int = 0):
+                  prepass_n: int, window_back: int = 0, baked27=None,
+                  group: int = 2):
     """The window march: (coords [N, K, 3], sigma [N, K], dists [N, K]) at
     the canonical positions of the ``window_indices`` samples, the same as
     ``sample_ray_equally`` gives them. With the conservative coarse bake
     this is the full march up to the bake's feature threshold and to spans
-    longer than the window."""
+    longer than the window.
+
+    With ``baked27`` (the 27-corner pack) each run of ``group`` consecutive
+    window samples reads one block row: the front and back windows are
+    each a multiple of ``group`` (``secondary_shading_tiled`` checks it),
+    so no group straddles their seam, and under ``check_pair_contract`` a
+    group's cells are at most one apart per axis."""
     S = n_sample
     jj, m = window_indices(coarse, baked.shape, aabb, o, d, n_sample=S,
                            vis_near=vis_near, vis_far=vis_far, window=window,
@@ -117,7 +125,12 @@ def _march_window(cfg, baked, coarse, aabb, o, d, *, n_sample: int,
     xyz = o[:, None, :] + d[:, None, :] * z[..., None]
     valid = m & ((xyz >= aabb[0]) & (xyz <= aabb[1])).all(-1)
     coords = F.normalize_coord(aabb, xyz)
-    feat = F.density_feature_packed(baked, coords)
+    if baked27 is not None:
+        N, K, _ = coords.shape
+        feat = F.density_feature_group_packed(
+            baked27, coords.reshape(N, K // group, group, 3)).reshape(N, K)
+    else:
+        feat = F.density_feature_packed(baked, coords)
     sigma = torch.where(valid, F.feature2density(cfg, feat),
                         torch.zeros_like(feat))
     dt = torch.full_like(z, (vis_far - vis_near) / (S - 1))
@@ -139,6 +152,8 @@ def compute_transmittance(
     march_cap: int = 0,
     baked: Optional[torch.Tensor] = None,
     coarse: Optional[torch.Tensor] = None,
+    baked27: Optional[torch.Tensor] = None,
+    march_group: int = 2,
     window: int = 0,
     window_back: int = 0,
     prepass_n: int = 18,
@@ -146,8 +161,9 @@ def compute_transmittance(
     """Visibility only, for the relighting eval: (nerv_vis [N],
     nerfactor_vis [N]), the final transmittance and 1 - acc. The exact VM
     march (``march_cap``: its first occupied samples only), or with
-    ``baked`` and ``coarse`` the window march on the baked grid (the JAX
-    package's baked march without a window has no caller)."""
+    ``baked`` and ``coarse`` the window march on the baked grid (grouped
+    by ``march_group`` with ``baked27``; the JAX package's baked march
+    without a window has no caller)."""
     aabb = scene["aabb"]
     if baked is not None:
         if coarse is None or not 0 < window < n_sample:
@@ -156,7 +172,8 @@ def compute_transmittance(
         _, sigma, dists = _march_window(
             cfg, baked, coarse, aabb, surf_pts, light_in_dir,
             n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
-            window=window, prepass_n=prepass_n, window_back=window_back)
+            window=window, prepass_n=prepass_n, window_back=window_back,
+            baked27=baked27, group=march_group)
     else:
         xyz, z_vals, valid = sample_ray_equally(surf_pts, light_in_dir, aabb,
                                                 vis_near, vis_far, n_sample)
@@ -213,10 +230,13 @@ def compute_radiance(
     march_cap: int = 0,
     baked: Optional[torch.Tensor] = None,
     coarse: Optional[torch.Tensor] = None,
+    baked27: Optional[torch.Tensor] = None,
+    march_group: int = 2,
     app_baked=None,
     window: int = 0,
     window_back: int = 0,
     prepass_n: int = 18,
+    return_app_payload: bool = False,
     return_stats: bool = False,
     pair_ok: Optional[torch.Tensor] = None,
     probe_window: int = 0,
@@ -233,7 +253,13 @@ def compute_radiance(
     padding pairs march but claim no slot of the ``app_pair_cap`` pairs
     that reach the app stage. ``probe_window`` adds to the stats the weight
     a window march of that size would lose, measured on the full baked
-    march."""
+    march.
+
+    With ``return_app_payload`` the colour is not computed here: the third
+    value is the app stage's inputs instead, a dict of ``pts_sel`` [cap,
+    k, 3], ``w_sel`` [cap, k], ``dirs`` [cap, 3], ``lidx`` [cap],
+    ``pair_idx`` [cap] (the pair of each slot; ``N`` for an unfilled one)
+    and ``pair_valid`` [cap], for ``_app_stage_global``."""
     aabb = scene["aabb"]
     windowed = (baked is not None and coarse is not None
                 and 0 < window < n_sample)
@@ -241,7 +267,8 @@ def compute_radiance(
         coords, sigma, dists = _march_window(
             cfg, baked, coarse, aabb, surf_pts, light_in_dir,
             n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
-            window=window, prepass_n=prepass_n, window_back=window_back)
+            window=window, prepass_n=prepass_n, window_back=window_back,
+            baked27=baked27, group=march_group)
     else:
         xyz, z_vals, valid = sample_ray_equally(surf_pts, light_in_dir, aabb,
                                                 vis_near, vis_far, n_sample)
@@ -304,16 +331,16 @@ def compute_radiance(
 
     nerv_vis = transmittance[..., 0]
     nerfactor_vis = 1.0 - weight.sum(-1)
+    if return_app_payload:
+        return nerv_vis, nerfactor_vis, {
+            "pts_sel": pts_sel, "w_sel": w_sel, "dirs": sub_dirs,
+            "lidx": sub_lidx,
+            "pair_idx": (pair_idx if pair_idx is not None else
+                         torch.arange(N, device=sigma.device)),
+            "pair_valid": pair_valid}
 
-    vdirs = sub_dirs[:, None, :].expand(pts_sel.shape)
-    lidx = sub_lidx[:, None].expand(pts_sel.shape[:2])
-    if app_baked is not None:
-        feat = F.app_feature_baked(*app_baked, pts_sel, lidx)
-    else:
-        feat = F.app_feature(cfg, params, pts_sel, lidx)
-    rgb = primary.shade_radiance(cfg, params, pts_sel, vdirs, feat)
-    sub_indirect = ((w_sel[..., None] * rgb).sum(-2)
-                    * pair_valid[:, None])                       # [cap, 3]
+    sub_indirect = _app_stage(cfg, params, pts_sel, w_sel, sub_dirs,
+                              sub_lidx, app_baked) * pair_valid[:, None]
     if pair_idx is None:
         indirect = sub_indirect
     else:
@@ -342,13 +369,41 @@ def compute_radiance(
     return nerv_vis, nerfactor_vis, indirect, stats
 
 
-def _require_unported_off(**knobs) -> None:
-    for name, value in knobs.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: not ported yet (the secondary pass has "
-                "no grouped march and no global app stage; ROADMAP queue 1 "
-                "item 6d)")
+def _app_stage(cfg, params, pts_sel, w_sel, dirs, lidx,
+               app_baked) -> torch.Tensor:
+    """Indirect light [M, 3] of M pairs: the radiance field's colour at
+    their selected samples pts_sel [M, k, 3] (from the VM factors, or from
+    ``app_baked``), composited with the weights w_sel [M, k]; dirs [M, 3]
+    and lidx [M] are each pair's light direction and light."""
+    vdirs = dirs[:, None, :].expand(pts_sel.shape)
+    li = lidx[:, None].expand(pts_sel.shape[:2])
+    if app_baked is not None:
+        feat = F.app_feature_baked(*app_baked, pts_sel, li)
+    else:
+        feat = F.app_feature(cfg, params, pts_sel, li)
+    rgb = primary.shade_radiance(cfg, params, pts_sel, vdirs, feat)
+    return (w_sel[..., None] * rgb).sum(-2)
+
+
+def _app_stage_global(cfg, params, payload: Dict, app_baked,
+                      tile: int) -> torch.Tensor:
+    """The app stage of every tile at once, on their payloads stacked to
+    [T, cap, ...]: the same arithmetic as each tile's own app stage, in one
+    batch of T times its size. Returns the indirect light [T, tile, 3],
+    each tile's pairs put back through its ``pair_idx``; an unfilled slot
+    (``pair_idx == tile``) writes a dump row that is cut off, as the
+    reference's dropped scatter."""
+    pts_sel, w_sel = payload["pts_sel"], payload["w_sel"]
+    T, cap, k, _ = pts_sel.shape
+    sub = _app_stage(cfg, params, pts_sel.reshape(T * cap, k, 3),
+                     w_sel.reshape(T * cap, k),
+                     payload["dirs"].reshape(T * cap, 3),
+                     payload["lidx"].reshape(T * cap), app_baked)
+    sub = sub * payload["pair_valid"].reshape(T * cap, 1)
+    rows = (torch.arange(T, device=sub.device)[:, None] * (tile + 1)
+            + payload["pair_idx"]).reshape(-1)
+    ind = sub.new_zeros((T * (tile + 1), 3)).index_copy(0, rows, sub)
+    return ind.reshape(T, tile + 1, 3)[:, :tile]
 
 
 def _reduce_stats(tile_stats, *, n_tiles: int, app_pair_cap: int,
@@ -406,6 +461,7 @@ def secondary_shading_tiled(
     coarse_dilate: int = 2,
     compact_frac: float = 0.0,
     march_group: int = 0,
+    group_bake_reso: int = 0,
     app_bake_reso: int = 0,
     app_hoist: bool = False,
     app_pair_frac: float = 0.0,
@@ -420,18 +476,30 @@ def secondary_shading_tiled(
 
     ``compact_frac`` in (0, 1) marches only the pairs in ``pair_mask``,
     packed in order into ceil(P L compact_frac / tile) tiles; pairs past
-    that capacity get zeros (``compact_overflow_frac`` counts them). Runs
-    without gradients, as the reference's secondary pass does."""
-    _require_unported_off(
-        second_march_group=march_group if march_group > 1 else 0,
-        secondary_app_hoist=app_hoist)
-    baked = coarse = app_baked = None
+    that capacity get zeros (``compact_overflow_frac`` counts them).
+    ``march_group`` > 1 groups the window march's samples on a 27-corner
+    pack baked at ``group_bake_reso`` (or ``bake_reso``); the caller checks
+    its contract (``F.check_pair_contract``). ``app_hoist`` computes every
+    tile's colour in one batch after the march (its stats dict is empty).
+    Runs without gradients, as the reference's secondary pass does."""
+    baked = coarse = baked27 = app_baked = None
     if use_baked:
         with record_function("bake"):
             baked = F.bake_packed_sigma_grid(cfg, params, scene,
                                              max_reso=bake_reso)
             if 0 < window < n_sample:
                 coarse = F.bake_coarse_occupancy(baked, dilate=coarse_dilate)
+                if march_group > 1:
+                    # groups must not straddle the front/back seam
+                    kf = window - window_back
+                    if kf % march_group or window_back % march_group:
+                        raise ValueError(
+                            f"second_march_group={march_group} must divide "
+                            f"both the front window ({kf}) and the back "
+                            f"window ({window_back})")
+                    baked27 = F.bake_pair_packed_sigma_grid(
+                        cfg, params, scene,
+                        max_reso=group_bake_reso or bake_reso)
             # CP has no appearance bake: it keeps the exact app stage
             if app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
                 grid = F.bake_app_feature_grid(cfg, params,
@@ -476,7 +544,8 @@ def secondary_shading_tiled(
         lidx = torch.cat([lidx, lidx.new_zeros((pad,))])
         mask = torch.cat([mask, mask.new_zeros((pad,))])
 
-    vis, ind, tile_stats = [], [], []
+    vis, ind, tile_stats, payloads = [], [], [], []
+    tile_stats_on = return_stats and not app_hoist
     with record_function("secondary_march"):
         for t0 in range(0, n_tiles * tile, tile):
             sl = slice(t0, t0 + tile)
@@ -486,18 +555,31 @@ def secondary_shading_tiled(
                 n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
                 app_cap=app_cap, app_pair_cap=app_pair_cap,
                 march_cap=march_cap, baked=baked, coarse=coarse,
+                baked27=baked27, march_group=max(march_group, 2),
                 app_baked=app_baked, window=window, window_back=window_back,
-                prepass_n=prepass_n, return_stats=return_stats, pair_ok=m,
+                prepass_n=prepass_n, return_app_payload=app_hoist,
+                return_stats=tile_stats_on, pair_ok=m,
                 probe_window=window_probe,
                 probe_window_back=window_probe_back)
             mf = m.to(out[0].dtype)
             vis.append(out[0] * mf)
-            ind.append(out[2] * mf[:, None])
-            if return_stats:
+            if app_hoist:
+                payloads.append(out[2])
+            else:
+                ind.append(out[2] * mf[:, None])
+            if tile_stats_on:
                 tile_stats.append(out[3])
             MARCHED["pairs"] += min(tile, n_rows - t0)
             MARCHED["tiles"] += 1
-    vis, ind = torch.cat(vis), torch.cat(ind)
+    vis = torch.cat(vis)
+    if app_hoist:
+        with record_function("app_stage_global"):
+            payload = {key: torch.stack([p[key] for p in payloads])
+                       for key in payloads[0]}
+            ind = _app_stage_global(cfg, params, payload, app_baked, tile)
+            ind = ind.reshape(-1, 3) * mask.to(ind.dtype)[:, None]
+    else:
+        ind = torch.cat(ind)
     if compact:
         # one scatter of [cap, 4] rows back to the pairs; unfilled slots
         # (marker total) land in a dump row that is cut off
@@ -509,6 +591,8 @@ def secondary_shading_tiled(
     vis, ind = vis.reshape(P, L, 1), ind.reshape(P, L, 3)
     if not return_stats:
         return vis, ind
+    if app_hoist:
+        return vis, ind, {}
     return vis, ind, _reduce_stats(tile_stats, n_tiles=n_tiles,
                                    app_pair_cap=app_pair_cap,
                                    compact_overflow=compact_overflow)

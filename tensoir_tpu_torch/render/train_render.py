@@ -47,6 +47,7 @@ def render_train_batch(
     coarse_dilate: int = 2,
     secondary_compact_frac: float = 0.0,
     second_march_group: int = 0,
+    group_bake_reso: int = 0,
     app_bake_reso: int = 0,
     secondary_app_hoist: bool = False,
     second_app_cap: int = 16,
@@ -102,6 +103,7 @@ def render_train_batch(
             second_prepass_n=second_prepass_n, coarse_dilate=coarse_dilate,
             secondary_compact_frac=secondary_compact_frac,
             second_march_group=second_march_group,
+            group_bake_reso=group_bake_reso,
             app_bake_reso=app_bake_reso,
             secondary_app_hoist=secondary_app_hoist,
             second_app_cap=second_app_cap, app_pair_frac=app_pair_frac,

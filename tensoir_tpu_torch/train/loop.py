@@ -10,6 +10,9 @@ Phase schedule, as in the JAX loop:
   * at each upsamp_list entry: factor upsample + fresh Adam + LR reset;
   * at fast_march_start / fast_march_end (or the auto flip on
     ``sec/window_resid_rel``): a new step that keeps the Adam state.
+Each new step of a relight phase takes the largest grouped marches that
+are legal for the live AABB (``resolve_march_group``,
+``resolve_primary_march_group``).
 The step runs eagerly, so an event recompiles nothing: the next step runs
 on the new shapes (the JAX loop recompiles its jitted step at each event).
 
@@ -75,6 +78,79 @@ def write_config_provenance(cfg: TensoIRConfig, log_dir: str) -> str:
         for fld in dataclasses.fields(cfg):
             f.write(f"{fld.name} = {getattr(cfg, fld.name)!r}\n")
     return path
+
+
+def resolve_march_group(cfg: TensoIRConfig, aabb, grid_size) -> int:
+    """The largest legal grouped secondary march for the live AABB:
+    ``cfg.second_march_group`` downgraded 4 -> 2 -> 0 until both windows
+    divide by it and the pair contract holds for a 27-corner pack at the
+    grid's nodes capped at ``group_bake_reso`` (or ``secondary_bake_reso``;
+    ``F.check_pair_contract``). The AABB shrinks during training while the
+    march's range stays, so a configured group can become illegal mid-run.
+    Says so when it downgrades."""
+    if cfg.second_march_group <= 1:
+        return 0
+    gx, gy, gz = grid_size
+    reso = cfg.group_bake_reso or cfg.secondary_bake_reso
+    nodes = [min(n, reso) if reso > 0 else n for n in (gz, gy, gx)]
+    blocks = tuple(n - 2 for n in nodes)
+    g = cfg.second_march_group
+    kf = cfg.second_window - cfg.second_window_back
+    last_err = "window not divisible by any legal group"
+    while g > 1:
+        if kf % g or cfg.second_window_back % g:
+            g //= 2
+            continue
+        try:
+            F.check_pair_contract(
+                np.asarray(aabb), blocks + (27,),
+                n_sample=cfg.second_nSample, group=g,
+                vis_near=cfg.second_near, vis_far=cfg.second_far)
+            break
+        except ValueError as e:
+            last_err = e
+            g //= 2
+    eff = g if g > 1 else 0
+    if eff != cfg.second_march_group:
+        print(f"[loop] grouped secondary march downgraded "
+              f"{cfg.second_march_group} -> {eff} for this phase: "
+              f"{last_err}", flush=True)
+    return eff
+
+
+def resolve_primary_march_group(cfg: TensoIRConfig, aabb, grid_size,
+                                step_ratio: float) -> int:
+    """The largest legal grouped primary march for the live AABB:
+    ``cfg.march_group`` downgraded 4 -> 2 -> 0 until it divides
+    ``march_cap_primary`` and a group spans at most 2 cells on the worst
+    axis, (g - 1) * step / min(units) <= 2 with step = step_ratio *
+    mean(units): a shrink that is not uniform leaves the cells anisotropic
+    until the next upsample. Says so when it downgrades."""
+    if cfg.march_group <= 1 or cfg.march_cap_primary <= 0:
+        return 0
+    aabb = np.asarray(aabb).reshape(2, 3)
+    units = (aabb[1] - aabb[0]) / (np.asarray(grid_size, np.float64) - 1.0)
+    span_cells = step_ratio * float(np.mean(units) / np.min(units))
+    g = cfg.march_group
+    last_err = ""
+    while g > 1:
+        if cfg.march_cap_primary % g:
+            last_err = (f"march_cap_primary={cfg.march_cap_primary} not "
+                        f"divisible by {g}")
+            g //= 2
+            continue
+        worst = (g - 1) * span_cells
+        if worst <= 2.0:
+            break
+        last_err = (f"(g-1)*step = {worst:.2f} cells on the worst axis "
+                    f"(> 2, live aabb units {units})")
+        g //= 2
+    eff = g if g > 1 else 0
+    if eff != cfg.march_group:
+        print(f"[loop] grouped primary march downgraded "
+              f"{cfg.march_group} -> {eff} for this phase: {last_err}",
+              flush=True)
+    return eff
 
 
 class SimpleSampler:
@@ -146,16 +222,6 @@ class TrainResult:
     n_samples: int
 
 
-def _refuse_unported(cfg: TensoIRConfig) -> None:
-    """Options the port's step or loop cannot run yet: refused before the
-    first step rather than at the first rebuild."""
-    for name in ("march_group", "second_march_group"):
-        if getattr(cfg, name) > 1:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)}: the grouped march is not "
-                f"ported yet (ROADMAP queue 1 item 6d)")
-
-
 def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The step's 0-d device metrics as floats, in one transfer."""
     vals = torch.stack([v.detach().float().reshape(())
@@ -179,7 +245,6 @@ def reconstruction(
     Under a process group (``parallel.multihost.initialize``) the run is
     data-parallel over its ranks; ``cfg.mesh_data`` > 1 must then be the
     group's size, and without a group it raises a ``ValueError``."""
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     # the data-parallel group: every launched rank (JAX: a mesh over every
     # chip of every process)
@@ -357,13 +422,22 @@ def reconstruction(
                       f"fast_march_start {cfg.fast_march_start} >= n_iters "
                       f"{n_iters}; the run stays at the core cap "
                       f"{cfg.relight_cap_start}", flush=True)
+        eff_group = 0
         if relight and 0 < eff_window < cfg.second_nSample:
-            # the window march's conservativeness contract, against the
-            # current (possibly shrunk) AABB
+            # the window march's conservativeness contract, and the largest
+            # legal grouped march, against the current (possibly shrunk)
+            # AABB
             F.check_march_contract(
                 scene["aabb"].cpu().numpy(),
                 prepass_n=cfg.second_prepass_n, dilate=cfg.coarse_dilate,
                 vis_near=cfg.second_near, vis_far=cfg.second_far)
+            eff_group = resolve_march_group(cfg, scene["aabb"].cpu().numpy(),
+                                            F.grid_size_of(params))
+        eff_pgroup = 0
+        if relight and cfg.march_group > 1:
+            eff_pgroup = resolve_primary_march_group(
+                cfg, scene["aabb"].cpu().numpy(), F.grid_size_of(params),
+                fcfg.step_ratio)
         # lr_light is not scaled: the reference fixes the light group's rate
         optimizer = make_optimizer(params, cfg.lr_init * lr_scale,
                                    cfg.lr_basis * lr_scale, lr_factor,
@@ -375,6 +449,7 @@ def reconstruction(
             sample_method=cfg.light_sample_train,
             app_cap=cfg.app_cap_per_ray,
             march_cap=cfg.march_cap_primary if relight else 0,
+            march_group=eff_pgroup,
             second_march_cap=cfg.march_cap_secondary,
             secondary_use_baked=cfg.secondary_use_baked,
             secondary_bake_reso=cfg.secondary_bake_reso,
@@ -384,6 +459,7 @@ def reconstruction(
             coarse_dilate=cfg.coarse_dilate,
             march_select=cfg.march_select,
             secondary_compact_frac=cfg.secondary_compact_frac,
+            second_march_group=eff_group,
             group_bake_reso=cfg.group_bake_reso,
             app_bake_reso=eff_app_bake,
             secondary_app_hoist=bool(cfg.secondary_app_hoist),

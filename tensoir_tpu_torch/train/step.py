@@ -2,10 +2,9 @@
 tensoir_tpu.train.step, for the radiance and the relight phase).
 
 ``LossWeights`` and ``StepStatic`` keep the JAX package's fields, so one
-config drives both (``bench.py``'s fast-knob step included); the grouped
-marches and the global app stage, which the port does not have yet,
-raise. The step runs eagerly on ``device``: forward, backward, then the
-in-place Adam update.
+config drives both (``bench.py``'s fast-knob step, the grouped marches and
+the global app stage included). The step runs eagerly on ``device``:
+forward, backward, then the in-place Adam update.
 With a ``parallel.Mesh`` of several processes, each rank renders its own
 rays and the gradients are averaged over the group before the update.
 """
@@ -89,13 +88,6 @@ class StepStatic:
     # no march jitter, no random background
     deterministic: bool = False
 
-    def __post_init__(self):
-        # shapes only the grouped march's bake, which is not ported yet
-        if self.group_bake_reso != 0:
-            raise NotImplementedError(
-                f"group_bake_reso={self.group_bake_reso!r}: not ported yet "
-                f"(ROADMAP queue 1 item 6d)")
-
 
 def compute_loss(cfg: F.FieldConfig, params, scene, batch,
                  key: Optional[torch.Generator], step: int,
@@ -116,6 +108,7 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         second_prepass_n=st.second_prepass_n, coarse_dilate=st.coarse_dilate,
         secondary_compact_frac=st.secondary_compact_frac,
         second_march_group=st.second_march_group,
+        group_bake_reso=st.group_bake_reso,
         app_bake_reso=st.app_bake_reso,
         secondary_app_hoist=st.secondary_app_hoist,
         second_app_cap=st.second_app_cap,

@@ -64,6 +64,16 @@ def png_size(path) -> Tuple[int, int]:
     return struct.unpack(">II", head[16:24])
 
 
+def png_is_palette(path) -> bool:
+    """Whether the file is a palette PNG (colour type 3), from its IHDR
+    chunk, reading 26 bytes."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return head[25] == 3
+
+
 def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     """Undo the row filters: raw [H, 1 + W * bpp] -> bytes [H, W * bpp]."""
     H = raw.shape[0]

@@ -187,10 +187,14 @@ def test_demo_runs_and_writes_final_metrics(tmp_path, monkeypatch):
             cfg.batch_size_test) == (
         (48, 48, 48), 128, 160 ** 3, (1, 4), (1, 2, 4), 32768, 4096)
     full = demo.demo_config
-    monkeypatch.setattr(demo, "demo_config", lambda args: full(args).replace(
-        N_voxel_init=12 ** 3, N_voxel_final=16 ** 3, n_lamb_sigma=(4, 4, 4),
-        n_lamb_sh=(6, 6, 6), data_dim_color=8, featureC=16, numLgtSGs=8,
-        secondary_tile=1024, batch_size_test=64))
+
+    def tiny(args):
+        return full(args).replace(
+            N_voxel_init=12 ** 3, N_voxel_final=16 ** 3,
+            n_lamb_sigma=(4, 4, 4), n_lamb_sh=(6, 6, 6), data_dim_color=8,
+            featureC=16, numLgtSGs=8, secondary_tile=1024,
+            batch_size_test=64)
+    monkeypatch.setattr(demo, "demo_config", tiny)
     out = tmp_path / "demo"
     metrics = demo.main(["--iters", "8", "--img", "12", "--views", "2",
                          "--batch", "64", "--relight_cap", "16", "--out",
@@ -202,7 +206,14 @@ def test_demo_runs_and_writes_final_metrics(tmp_path, monkeypatch):
             "train_time_s"} <= set(saved)
     assert (out / "ckpt_final.npz").exists()
     assert len(os.listdir(out / "eval" / "nvs_with_brdf")) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.main(["--iters", "8", "--img", "4", "--views", "1",
-                   "--primary_group", "2", "--out", str(tmp_path / "g")],
-                  device="cpu")
+    # the grouped marches run: the primary with a cap below the tiny
+    # march's samples, so that it groups; the secondary on a window march
+    monkeypatch.setattr(demo, "demo_config", lambda args: tiny(args).replace(
+        march_cap_primary=32))
+    grouped = demo.main(["--iters", "8", "--img", "12", "--views", "2",
+                         "--batch", "64", "--relight_cap", "16",
+                         "--primary_group", "2", "--march_group", "2",
+                         "--group_bake", "8", "--window", "8",
+                         "--window_back", "4", "--out", str(tmp_path / "g")],
+                        device="cpu")
+    assert math.isfinite(grouped["psnr_nvs_brdf"])

@@ -64,17 +64,20 @@ def _assert_maps(t_out, j_out, what):
         assert d <= MAP_ATOL, (what, k, d)
 
 
-@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("fast", [False, True, "hoist"],
+                         ids=["exact", "fast", "fast_hoist"])
 def test_eval_chunk_matches_jax(setup, fast):
     """make_eval_chunk_fn + render_image over 144 rays in chunks of 64 (the
     last padded), every ray relit under the 32 fixed directions: the exact
     full march, and FAST_MARCH_KNOBS (window 48/16 over the coarse
-    occupancy, compaction, bakes) at 96 secondary samples."""
+    occupancy, compaction, bakes) at 96 secondary samples, with the app
+    stage in its tiles or hoisted out of them (``secondary_app_hoist``)."""
     s = setup
     item = s["tds"][0]
     rays = np.asarray(item["rays"], np.float32)
     lidx = np.zeros((rays.shape[0], 1), np.int32)
-    knobs = dict(FAST, **TE.FAST_MARCH_KNOBS, ndc_ray=False) if fast else EXACT
+    knobs = (dict(FAST, **TE.FAST_MARCH_KNOBS, ndc_ray=False,
+                  secondary_app_hoist=fast == "hoist") if fast else EXACT)
     assert dict(JE.FAST_MARCH_KNOBS) == dict(TE.FAST_MARCH_KNOBS)
     j_fn, c = JE.make_eval_chunk_fn(s["jcfg"], n_samples=N_SAMPLES,
                                     chunk=CHUNK, **knobs)
@@ -85,7 +88,7 @@ def test_eval_chunk_matches_jax(setup, fast):
     acc = j_out["acc_map"]
     assert (acc > 0.5).sum() > 10 and (acc < 0.5).sum() > 10
     assert j_out["acc_mask"].dtype == t_out["acc_mask"].dtype == np.bool_
-    _assert_maps(t_out, j_out, "fast" if fast else "exact")
+    _assert_maps(t_out, j_out, str(fast))
     # one chunk, directly: the maps are torch tensors on the field's device
     out = t_fn(s["tp"], s["ts"], torch.as_tensor(rays[:CHUNK]),
                torch.zeros((CHUNK,), dtype=torch.int32))

@@ -312,12 +312,17 @@ def test_image_loaders_match_jax(tmp_path, mode):
 
 
 def test_image_loaders_refuse_a_resize_and_save_png_matches_jax(tmp_path):
+    """The loaders resize a file of another size on load, as JAX's do
+    with PIL (once refused here; tests/test_torch_helpers.py holds the
+    resize at more sizes and modes); and save_png writes JAX's PNG."""
     path = tmp_path / "x.png"
     Image.fromarray((RNG.random((8, 8, 4)) * 255).astype(np.uint8)).save(path)
-    with pytest.raises(ValueError, match="resizing on load is not ported"):
-        TI.load_rgba_white_composite(path, (4, 4))
-    with pytest.raises(ValueError, match="resizing on load is not ported"):
-        TI.load_normal_png(path, (4, 4))
+    for wh in ((4, 4), (5, 3)):
+        got, gmask = TI.load_rgba_white_composite(path, wh)
+        want, wmask = JI.load_rgba_white_composite(path, wh)
+        assert np.array_equal(got, want) and np.array_equal(gmask, wmask)
+        assert np.array_equal(TI.load_normal_png(path, wh),
+                              JI.load_normal_png(path, wh))
     img = RNG.random((5, 7, 3)).astype(np.float32)
     TI.save_png(tmp_path / "port.png", img)
     JI.save_png(tmp_path / "jax.png", img)

@@ -3,7 +3,9 @@ PIL, imageio and cv2 (the machine with the card has none of the last
 three), and runs a radiance step, the same step under a one-rank gloo
 process group (``parallel``), a relight and a fast-knob relight training
 step, relight and NDC steps of TensorCP and the stacked TensorVM (the
-importance and equal-area samplers, bf16, SH, residue normals), a tiny
+importance and equal-area samplers, bf16, SH, residue normals), a relight
+step with the grouped marches and the hoisted app stage, an image resized
+on load, a tiny
 relighting benchmark on a relighting test set written to disk, a
 3-iteration training run through an alpha-mask and shrink event
 that writes and reads back its checkpoint, and a tiny run of the training
@@ -94,6 +96,30 @@ STEP = textwrap.dedent("""
                             torch.Generator().manual_seed(3), 10001)
     assert math.isfinite(float(m["total_loss"]))
     assert 0.0 <= float(m["sec/app_pair_occupancy"])
+    # the grouped primary and secondary marches and the hoisted app stage
+    step = make_train_step(cfg, opt, StepStatic(
+        n_samples=32, is_relight=True, white_bg=True, app_cap=8,
+        march_cap=16, march_group=4, relight_ray_cap=8, second_n_sample=16,
+        secondary_tile=128, secondary_bake_reso=12, second_window=12,
+        second_window_back=4, second_prepass_n=8, coarse_dilate=3,
+        second_march_group=2, group_bake_reso=8, app_bake_reso=12,
+        secondary_app_hoist=True), LossWeights(l1=4e-5), device="cpu")
+    params, state, m = step(params, state, scene, batch,
+                            torch.Generator().manual_seed(7), 10002)
+    assert math.isfinite(float(m["total_loss"]))
+    assert float(m["march_overflow_frac"]) >= 0.0
+    # an image resized on load, as PIL would, without PIL
+    import os
+    import tempfile
+    import numpy as np
+    from tensoir_tpu_torch.data.images import load_rgba_white_composite
+    from tensoir_tpu_torch.utils.png import write_png
+    with tempfile.TemporaryDirectory() as tmp:
+        img = (np.arange(8 * 8 * 4) % 251).astype(np.uint8).reshape(8, 8, 4)
+        write_png(os.path.join(tmp, "x.png"), img)
+        rgb, mask = load_rgba_white_composite(os.path.join(tmp, "x.png"),
+                                              (4, 3))
+        assert rgb.shape == (12, 3) and mask.shape == (12, 1)
     # the model variants: TensorCP and the stacked TensorVM, each through a
     # relight step that draws its light directions from the generator
     # (importance, equal areas), with bf16 products, SH shading and
@@ -240,10 +266,16 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "tensoir_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the data-parallel layer and its worker are among them
+    # the data-parallel layer and its worker, and the image loaders with
+    # their resize, are among them
     for part in ("parallel/__init__.py", "parallel/mesh.py",
-                 "parallel/multihost.py", "scripts/multihost_worker.py"):
+                 "parallel/multihost.py", "scripts/multihost_worker.py",
+                 "data/images.py", "ops/__init__.py"):
         assert ROOT / "tensoir_tpu_torch" / part in files, part
+    # the resize is numpy's: no import of PIL, not even a deferred one
+    images = (ROOT / "tensoir_tpu_torch" / "data" / "images.py").read_text()
+    assert not re.search(r"(import|from)\s+PIL|importlib|__import__",
+                         images)
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

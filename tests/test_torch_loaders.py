@@ -168,13 +168,13 @@ def test_loader_refusals(tmp_path):
                                 "near_far", "white_bg"))
     root = str(tmp_path / "armadillo")
     _make_tensoir_fixture(root, n_views=1, rotations=("000",))
-    # a 16 x 16 file for an 8 x 8 view: JAX resizes with PIL, the port
-    # refuses
-    cls = t_get("tensoIR_unknown_rotated_lights")
-    with pytest.raises(ValueError, match="resizing on load is not ported"):
-        cls(root, None, split="train", downsample=2.0)
-    assert j_get("tensoIR_unknown_rotated_lights")(
-        root, None, split="train", downsample=2.0).all_rays.shape == (64, 6)
+    # a 16 x 16 file for an 8 x 8 view: both resize it (JAX with PIL)
+    kw = dict(split="train", downsample=2.0)
+    tds = t_get("tensoIR_unknown_rotated_lights")(root, None, **kw)
+    jds = j_get("tensoIR_unknown_rotated_lights")(root, None, **kw)
+    assert jds.all_rays.shape == (64, 6)
+    _assert_items(tds, jds)
+    _assert_same(tds, jds, DATA)
 
 
 CAMERAS = {

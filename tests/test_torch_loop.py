@@ -338,10 +338,8 @@ def test_stop_file_ends_the_run_with_a_final_checkpoint(tmp_path,
 
 @pytest.mark.parametrize("kw,exc,match", [
     # several ranks need the launcher: one process cannot make them
-    (dict(mesh_data=2), ValueError, "torch.distributed.run --nproc_per_node"),
-    (dict(march_group=2), NotImplementedError, "ROADMAP"),
-    (dict(second_march_group=2), NotImplementedError, "ROADMAP")],
-    ids=["mesh_data", "march_group", "second_march_group"])
+    (dict(mesh_data=2), ValueError, "torch.distributed.run --nproc_per_node")],
+    ids=["mesh_data"])
 def test_unported_options_are_refused_at_the_start(kw, exc, match, tmp_path,
                                                    monkeypatch):
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
@@ -350,6 +348,48 @@ def test_unported_options_are_refused_at_the_start(kw, exc, match, tmp_path,
         TL.reconstruction(_port_cfg(**kw), _dataset(),
                           log_dir=str(tmp_path), device="cpu")
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(march_group=4, march_cap_primary=32, step_ratio=0.5),
+    dict(second_march_group=4),
+    dict(secondary_app_hoist=1)],
+    ids=["march_group", "second_march_group", "secondary_app_hoist"])
+def test_grouped_options_run_and_downgrade_as_jax(kw, tmp_path, monkeypatch,
+                                                  capsys):
+    """The grouped marches and the hoisted app stage run through the
+    loop's relight phases; at each rebuild the loop takes the groups JAX's
+    resolvers take for the live AABB and grid, and prints JAX's downgrade
+    lines."""
+    calls = []
+    for name in ("resolve_march_group", "resolve_primary_march_group"):
+        def record(*args, _fn=getattr(TL, name), _name=name):
+            calls.append((_name, args, _fn(*args)))
+            return calls[-1][2]
+        monkeypatch.setattr(TL, name, record)
+    res = TL.reconstruction(_port_cfg(**kw), _dataset(),
+                            log_dir=str(tmp_path), device="cpu")
+    printed = capsys.readouterr().out
+    relit = [m for m in res.metrics_history if "loss_rgb_brdf" in m]
+    assert relit and all(np.isfinite(m["total_loss"]) for m in relit)
+    assert res.metrics_history[-1]["iteration"] == SCHEDULE["n_iters"] - 1
+    jcfg = JConfig(**dict(SCHEDULE, **kw))
+    for name, args, got in calls:
+        assert getattr(JL, name)(jcfg, *args[1:]) == got, (name, args[1:])
+        for line in capsys.readouterr().out.splitlines():
+            assert line in printed
+    groups = {name: [got for n, _, got in calls if n == name]
+              for name in ("resolve_march_group",
+                           "resolve_primary_march_group")}
+    if "march_group" in kw:
+        assert groups["resolve_primary_march_group"] and max(
+            groups["resolve_primary_march_group"]) == 4
+    if "second_march_group" in kw:
+        # resolved once the window march is on; the shrunk box's bake
+        # cells are too small for 4 consecutive samples
+        assert groups["resolve_march_group"]
+        assert max(groups["resolve_march_group"]) < 4
+        assert "grouped secondary march downgraded 4 ->" in printed
 
 
 def test_reconstruction_defaults_to_the_card():

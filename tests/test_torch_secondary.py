@@ -178,17 +178,37 @@ def test_secondary_shading_tiled_matches_jax(masked, use_baked):
     assert not np.asarray(jvis)[~mask].any()
 
 
-def test_secondary_knobs_not_ported_raise(masked):
+_j_knobs = jax.jit(_j_tiled, static_argnums=0,
+                   static_argnames=("n_sample", "vis_near", "vis_far",
+                                    "tile", "app_cap", "window",
+                                    "window_back", "prepass_n",
+                                    "march_group", "app_hoist"))
+
+
+@pytest.mark.parametrize("kw", [dict(march_group=2), dict(app_hoist=True)],
+                         ids=["march_group", "app_hoist"])
+def test_secondary_knobs_not_ported_raise(masked, kw):
+    """The grouped march and the global app stage, once refused here, run
+    and match JAX's (tests/test_torch_grouped_march.py holds them in
+    detail): on the window march, each package baking its own tables."""
     jcfg, jp, js = masked
     tp, ts = port_field(jp, js)
-    args = (port_cfg(jcfg), tp, ts, torch.zeros((2, 3)),
-            torch.ones((2, 4, 3)), torch.zeros((2,), dtype=torch.int32),
-            torch.ones((2, 4), dtype=torch.bool))
-    # the grouped march and the global app stage; the other fast knobs run
-    # (tests/test_torch_fastknobs.py)
-    for kw in (dict(march_group=2), dict(app_hoist=True)):
-        with pytest.raises(NotImplementedError):
-            TSec.secondary_shading_tiled(*args, tile=8, **SEC, **kw)
+    P, L = 12, 16
+    pts, _ = _pairs(P, seed=12)
+    _, dirs = _pairs(P * L, seed=13)
+    dirs = dirs.reshape(P, L, 3)
+    lidx = np.zeros((P,), np.int32)
+    mask = np.random.default_rng(14).uniform(size=(P, L)) > 0.3
+    knobs = dict(tile=64, app_cap=6, window=12, window_back=4, prepass_n=8,
+                 **SEC, **kw)
+    jvis, jind = _j_knobs(jcfg, jp, js, jnp.asarray(pts), jnp.asarray(dirs),
+                          jnp.asarray(lidx), jnp.asarray(mask), **knobs)
+    tvis, tind = TSec.secondary_shading_tiled(
+        port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
+        torch.from_numpy(mask), **knobs)
+    np.testing.assert_allclose(_np(tvis), np.asarray(jvis), **OWN_BAKE)
+    np.testing.assert_allclose(_np(tind), np.asarray(jind), **OWN_BAKE)
+    assert np.asarray(jvis)[mask].min() < 0.5 < np.asarray(jvis)[mask].max()
 
 
 _j_render_brdf = jax.jit(

@@ -21,6 +21,7 @@ import torch
 from tensoir_tpu import config as JC
 from tensoir_tpu.models import lifecycle as JLC
 from tensoir_tpu.render import primary as JP
+from tensoir_tpu.render import train_render as JTR
 from tensoir_tpu.train import optim as JO
 from tensoir_tpu.train import step as JS
 from tensoir_tpu.train.loop import field_config_from as j_field_config_from
@@ -68,18 +69,25 @@ def test_render_rays_matches_jax(app_cap):
 
 
 def test_unported_paths_raise():
-    """The grouped marches still raise. The NDC march and the importance
-    sampler, once refused here, run and match JAX (the sampler with its
-    key: directions drawn from the learned light, which the deterministic
-    step replaces by the fixed grid)."""
+    """Every path once refused here runs and matches JAX: the grouped
+    primary march, the grouped secondary march with its own bake knob, the
+    NDC march, and the importance sampler (with its key: directions drawn
+    from the learned light, which the deterministic step replaces by the
+    fixed grid)."""
     jcfg = small_cfg(envmap_h=2, envmap_w=4)
     jp, js = jax_field(jcfg)
     tp, ts = port_field(jp, js)
     r, lidx, _ = _inputs()
     args = dict(n_samples=S, key=None, is_relight=False)
-    with pytest.raises(NotImplementedError):
-        t_render_rays(port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
-                      march_group=2, **args)
+    j_group = jax.jit(functools.partial(JP.render_rays, march_cap=32,
+                                        march_group=2),
+                      static_argnums=0, static_argnames=tuple(args))
+    jout = j_group(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx), **args)
+    tout = t_render_rays(port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
+                         march_cap=32, march_group=2, **args)
+    for k in ("rgb_map", "depth_map", "acc_map", "march_overflow_frac"):
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]),
+                                   rtol=2e-5, atol=2e-6, err_msg=k)
     j_ndc = jax.jit(functools.partial(JP.render_rays, ndc_ray=True),
                     static_argnums=0, static_argnames=tuple(args))
     jout = j_ndc(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx), **args)
@@ -101,20 +109,30 @@ def test_unported_paths_raise():
                                    t(lidx, torch.int32), **base, **kw)
         assert ret["rgb_with_brdf_map"].shape == (B, 3)
     assert "sec/app_pair_occupancy" in ret
-    with pytest.raises(NotImplementedError):
-        t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
-                             t(lidx, torch.int32), second_march_group=2,
-                             **base)
+    # the grouped secondary march on the fast knobs' window (front 2, back
+    # 2), on its own 27-corner bake: JAX's, each package baking its own
+    # tables (1e-3 relative, 1e-4 absolute, test_torch_secondary.py's)
+    group = dict(fast, second_march_group=2, group_bake_reso=10,
+                 secondary_stats=False)
+    j_train = jax.jit(functools.partial(JTR.render_train_batch, **base,
+                                        **group), static_argnums=0)
+    jret = j_train(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx))
+    ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
+                               t(lidx, torch.int32), **base, **group)
+    np.testing.assert_allclose(ret["rgb_with_brdf_map"].numpy(),
+                               np.asarray(jret["rgb_with_brdf_map"]),
+                               rtol=1e-3, atol=1e-4)
     imp = t_render_train_batch(
         port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
         sample_method="importance_sample",
         **dict(base, key=torch.Generator().manual_seed(0)))
     assert bool(torch.isfinite(imp["rgb_with_brdf_map"]).all())
-    # the grouped march's own bake knob raises where it is set
-    with pytest.raises(NotImplementedError):
-        TS.StepStatic(n_samples=S, is_relight=True, white_bg=True,
-                      group_bake_reso=64)
-    TS.StepStatic(n_samples=S, is_relight=True, white_bg=True, **fast)
+    # the grouped march's own bake knob is a field like JAX's
+    for kw in (dict(group_bake_reso=64), fast):
+        assert dataclasses.asdict(TS.StepStatic(
+            n_samples=S, is_relight=True, white_bg=True, **kw)) == \
+            dataclasses.asdict(JS.StepStatic(n_samples=S, is_relight=True,
+                                             white_bg=True, **kw))
 
 
 def _weights(lr_factor):
