@@ -1,0 +1,7 @@
+"""K1 (row gather) in the eval or relighting: its least time over its
+device time."""
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, "k1")

@@ -1,0 +1,6 @@
+"""The training step's model operations against the H100's float32 peak."""
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.mfu_pct(ctx)

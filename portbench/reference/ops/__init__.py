@@ -1,0 +1,1 @@
+"""Frozen copy (plain PyTorch) of the port's modules of the same name."""

@@ -1,0 +1,126 @@
+"""Training-step renderer: the primary pass, and in the relight phase the
+physically based branch (port of
+tensoir_tpu.render.train_render.render_train_batch).
+
+The reference relights every ray whose accumulated opacity passes 0.5 (a
+count that varies); here a fixed ``relight_ray_cap`` of rays is relit,
+those rays first (a stable argsort), and the result is scattered back.
+Rays that are not relit keep the white background. With
+``normals_kind='gt_normals'`` the dataset's normals ``normal_gt`` [B, 3]
+take the place of the normal map.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from portbench.reference.models import field as F
+from portbench.reference.render.brdf_render import render_with_brdf
+from portbench.reference.render.primary import render_rays
+
+
+def render_train_batch(
+    cfg: F.FieldConfig,
+    params: Dict,
+    scene: Dict,
+    rays: torch.Tensor,
+    light_idx: torch.Tensor,
+    *,
+    n_samples: int,
+    key: Optional[torch.Generator],
+    is_train: bool = True,
+    is_relight: bool = True,
+    white_bg: bool = True,
+    sample_method: str = "stratified_sampling",
+    app_cap: int = 32,
+    march_cap: int = 0,
+    march_select: str = "scatter",
+    march_group: int = 0,
+    second_march_cap: int = 32,
+    secondary_use_baked: bool = True,
+    secondary_bake_reso: int = 0,
+    second_window: int = 0,
+    second_window_back: int = 0,
+    second_prepass_n: int = 18,
+    coarse_dilate: int = 2,
+    secondary_compact_frac: float = 0.0,
+    second_march_group: int = 0,
+    group_bake_reso: int = 0,
+    app_bake_reso: int = 0,
+    secondary_app_hoist: bool = False,
+    second_app_cap: int = 16,
+    app_pair_frac: float = 0.0,
+    secondary_stats: bool = False,
+    second_window_probe: int = 0,
+    second_window_probe_back: int = 0,
+    ndc_ray: bool = False,
+    relight_ray_cap: int = 1024,
+    second_n_sample: int = 96,
+    second_near: float = 0.05,
+    second_far: float = 1.5,
+    secondary_tile: int = 16384,
+    normal_gt: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    with record_function("primary"):
+        ret = render_rays(cfg, params, scene, rays, light_idx,
+                          n_samples=n_samples, key=key, is_train=is_train,
+                          is_relight=is_relight, white_bg=white_bg,
+                          app_cap=app_cap, march_cap=march_cap,
+                          march_select=march_select, march_group=march_group,
+                          ndc_ray=ndc_ray)
+    if not is_relight:
+        ret["rgb_with_brdf_map"] = torch.ones_like(ret["rgb_map"])
+        return ret
+
+    B = rays.shape[0]
+    acc_mask = ret["acc_mask"]
+    if cfg.normals_kind == "gt_normals" and normal_gt is not None:
+        ret["normal_map"] = normal_gt
+    cap = min(relight_ray_cap, B) if relight_ray_cap > 0 else B
+    if cap < B:
+        # stable: the rays with acc > 0.5 first, each group in batch order
+        order = torch.argsort((~acc_mask).to(torch.uint8), stable=True)
+        sel = order[:cap]
+    else:
+        sel = torch.arange(B, device=rays.device)
+    sel_valid = acc_mask[sel]
+
+    with record_function("brdf_render"):
+        rgb_sel = render_with_brdf(
+            cfg, params, scene, ret["depth_map"][sel], ret["normal_map"][sel],
+            ret["albedo_map"][sel], ret["roughness_map"][sel],
+            ret["fresnel_map"][sel], rays[sel], light_idx[sel],
+            sample_method=sample_method, key=key,
+            second_n_sample=second_n_sample, second_near=second_near,
+            second_far=second_far, secondary_tile=secondary_tile,
+            second_march_cap=second_march_cap,
+            secondary_use_baked=secondary_use_baked,
+            secondary_bake_reso=secondary_bake_reso,
+            second_window=second_window,
+            second_window_back=second_window_back,
+            second_prepass_n=second_prepass_n, coarse_dilate=coarse_dilate,
+            secondary_compact_frac=secondary_compact_frac,
+            second_march_group=second_march_group,
+            group_bake_reso=group_bake_reso,
+            app_bake_reso=app_bake_reso,
+            secondary_app_hoist=secondary_app_hoist,
+            second_app_cap=second_app_cap, app_pair_frac=app_pair_frac,
+            return_secondary_stats=secondary_stats,
+            second_window_probe=second_window_probe,
+            second_window_probe_back=second_window_probe_back)
+    if secondary_stats:
+        rgb_sel, sec_stats = rgb_sel
+        ret.update({f"sec/{k}": v for k, v in sec_stats.items()})
+    rgb_sel = torch.where(sel_valid[:, None], rgb_sel,
+                          torch.ones_like(rgb_sel))
+
+    ret["rgb_with_brdf_map"] = rgb_sel.new_ones((B, 3)).index_copy(
+        0, sel, rgb_sel)
+    # the rays whose rgb_with_brdf enters the loss: the relit surface rays
+    # and every ray that is not a surface ray (white against white); a
+    # surface ray left out by the cap must not count as white
+    computed = torch.zeros_like(acc_mask).index_copy(0, sel, sel_valid)
+    ret["relight_computed_mask"] = computed | ~acc_mask
+    return ret
