@@ -923,17 +923,13 @@ def phase_train(streams):
     return launches, shapes
 
 
-# the record_function ranges of the step (train/step.py, render/*.py)
-RANGES = ("forward", "backward", "adam", "primary", "derived_normals",
-          "brdf_render", "bake", "secondary_march", "app_stage_global",
-          "visibility")
-
-
 def emit_breakdown(phase: str, run_step, step_ms: float) -> dict:
     """Where one step's device time goes, by CUDA kernel and by the step's
     own ranges, and the share of the timed step the card sat idle.
     Informational: not a pass/fail. Returns the line it emits."""
     import torch
+
+    from tensoir_tpu_torch.profiling import SPANS
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -942,20 +938,20 @@ def emit_breakdown(phase: str, run_step, step_ms: float) -> dict:
             run_step()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        # the step's ranges also appear on the device timeline as spans:
-        # they are not kernels
+        # the port's spans also appear on the device timeline: they are
+        # not kernels
         kern = [e for e in events if e.device_type == DeviceType.CUDA
-                and e.key not in RANGES]
+                and e.key not in SPANS]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
         host = [e for e in events if e.device_type == DeviceType.CPU
-                and e.key not in RANGES]
-        # device time of the kernels launched inside each range (the
-        # backward runs on autograd's own thread, outside the ranges: it is
+                and e.key not in SPANS]
+        # device time of the kernels launched inside each span (the
+        # backward runs on autograd's own thread, outside the spans: it is
         # the busy time the forward and adam leave)
         ranges = {e.key: {"device_ms": e.device_time_total / 1e3,
                           "host_ms": e.cpu_time_total / 1e3}
                   for e in events
-                  if e.key in RANGES and e.device_type == DeviceType.CPU}
+                  if e.key in SPANS and e.device_type == DeviceType.CPU}
         line = {"phase": phase, "device_busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / step_ms, "ranges": ranges,
               "top_kernels": [

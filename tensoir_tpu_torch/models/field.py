@@ -46,6 +46,7 @@ from tensoir_tpu_torch.ops.interp import (bilerp_plane_group_packed,
                                           resize_line_align_corners,
                                           trilerp_volume)
 from tensoir_tpu_torch.ops.rays import linspace, safe_l2_normalize
+from tensoir_tpu_torch.profiling import span
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
@@ -254,16 +255,17 @@ def density_feature(cfg: FieldConfig, params: Dict, coords):
     """sigma feature at normalized coords [..., 3]: sum_i <plane_i(c),
     line_i(c)> (VM), or the sum over components of the product of the
     three line lookups (CP)."""
-    if cfg.decomp == "cp":
-        return _cp_product(params, "density", coords).sum(-1)
-    total = coords.new_zeros(coords.shape[:-1])
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        plane, line = density_factors(cfg, params, i)
-        lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
-        pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
-        total = total + (pf * lf).sum(-1)
-    return total
+    with span("field"):
+        if cfg.decomp == "cp":
+            return _cp_product(params, "density", coords).sum(-1)
+        total = coords.new_zeros(coords.shape[:-1])
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane, line = density_factors(cfg, params, i)
+            lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
+            pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
+            total = total + (pf * lf).sum(-1)
+        return total
 
 
 def density_feature_grouped(cfg: FieldConfig, params: Dict, coords_g):
@@ -272,32 +274,34 @@ def density_feature_grouped(cfg: FieldConfig, params: Dict, coords_g):
     16-corner block row per group (``bilerp_plane_group_packed``); equal
     to the per-sample feature up to the order of the sums while each
     group stays inside its 3 x 3-cell block. VM and ``vm_stacked`` only."""
-    if cfg.decomp not in ("vm", "vm_stacked"):
-        raise ValueError(f"no grouped density for decomp {cfg.decomp!r}")
-    total = coords_g.new_zeros(coords_g.shape[:-1])
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        plane, line = density_factors(cfg, params, i)
-        lf = lerp_line_matmul(line, coords_g[..., VEC_MODE[i]])
-        pf = bilerp_plane_group_packed(plane, coords_g[..., m0],
-                                       coords_g[..., m1])
-        total = total + (pf * lf).sum(-1)
-    return total
+    with span("field"):
+        if cfg.decomp not in ("vm", "vm_stacked"):
+            raise ValueError(f"no grouped density for decomp {cfg.decomp!r}")
+        total = coords_g.new_zeros(coords_g.shape[:-1])
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane, line = density_factors(cfg, params, i)
+            lf = lerp_line_matmul(line, coords_g[..., VEC_MODE[i]])
+            pf = bilerp_plane_group_packed(plane, coords_g[..., m0],
+                                           coords_g[..., m1])
+            total = total + (pf * lf).sum(-1)
+        return total
 
 
 def _app_raw_feature(cfg: FieldConfig, params: Dict, coords):
     """Concatenated per-axis appearance features [..., sum(Ra)] (VM), or
     the product of the three line lookups [..., Ra] (CP)."""
-    if cfg.decomp == "cp":
-        return _cp_product(params, "app", coords)
-    feats = []
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        plane, line = app_factors(cfg, params, i)
-        lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
-        pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
-        feats.append(pf * lf)
-    return torch.cat(feats, -1)
+    with span("field"):
+        if cfg.decomp == "cp":
+            return _cp_product(params, "app", coords)
+        feats = []
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane, line = app_factors(cfg, params, i)
+            lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
+            pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
+            feats.append(pf * lf)
+        return torch.cat(feats, -1)
 
 
 def light_rows(light_line: torch.Tensor, light_idx) -> torch.Tensor:
@@ -510,41 +514,42 @@ def density_feature_group_packed(packed27: torch.Tensor,
     reads clamped cells, not another block. Equal to
     ``density_feature_packed`` on each point, up to the order of the
     sums, within the contract."""
-    Zb, Yb, Xb, K = packed27.shape
-    Zc, Yc, Xc = Zb + 1, Yb + 1, Xb + 1   # cell counts of the fine grid
-    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
-    fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
-    fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
-    fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
-    ix = torch.floor(fx).clamp(0, Xc - 1)
-    iy = torch.floor(fy).clamp(0, Yc - 1)
-    iz = torch.floor(fz).clamp(0, Zc - 1)
-    wx, wy, wz = fx - ix, fy - iy, fz - iz
-    bx = ix.amin(-1).clamp(0, Xc - 2)
-    by = iy.amin(-1).clamp(0, Yc - 2)
-    bz = iz.amin(-1).clamp(0, Zc - 2)
-    ox = (ix - bx[..., None]).clamp(0.0, 1.0)
-    oy = (iy - by[..., None]).clamp(0.0, 1.0)
-    oz = (iz - bz[..., None]).clamp(0.0, 1.0)
+    with span("field"):
+        Zb, Yb, Xb, K = packed27.shape
+        Zc, Yc, Xc = Zb + 1, Yb + 1, Xb + 1   # cell counts of the fine grid
+        x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+        fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
+        fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
+        fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
+        ix = torch.floor(fx).clamp(0, Xc - 1)
+        iy = torch.floor(fy).clamp(0, Yc - 1)
+        iz = torch.floor(fz).clamp(0, Zc - 1)
+        wx, wy, wz = fx - ix, fy - iy, fz - iz
+        bx = ix.amin(-1).clamp(0, Xc - 2)
+        by = iy.amin(-1).clamp(0, Yc - 2)
+        bz = iz.amin(-1).clamp(0, Zc - 2)
+        ox = (ix - bx[..., None]).clamp(0.0, 1.0)
+        oy = (iy - by[..., None]).clamp(0.0, 1.0)
+        oz = (iz - bz[..., None]).clamp(0.0, 1.0)
 
-    def axis_weights(off, w):
-        # the point's cell starts at block node `off`: node off gets 1 - w,
-        # node off + 1 gets w
-        at0 = off == 0.0
-        zero = w.new_zeros(())
-        return torch.stack([torch.where(at0, 1.0 - w, zero),
-                            torch.where(at0, w, 1.0 - w),
-                            torch.where(at0, zero, w)], -1)     # [..., g, 3]
+        def axis_weights(off, w):
+            # the point's cell starts at block node `off`: node off gets 1 - w,
+            # node off + 1 gets w
+            at0 = off == 0.0
+            zero = w.new_zeros(())
+            return torch.stack([torch.where(at0, 1.0 - w, zero),
+                                torch.where(at0, w, 1.0 - w),
+                                torch.where(at0, zero, w)], -1)  # [..., g, 3]
 
-    uz, uy, ux = axis_weights(oz, wz), axis_weights(oy, wy), \
-        axis_weights(ox, wx)
-    w27 = (uz[..., :, None, None] * uy[..., None, :, None]
-           * ux[..., None, None, :]).reshape(*uz.shape[:-1], 27)
-    i32 = torch.int32
-    idx = (bz.to(i32) * Yb + by.to(i32)) * Xb + bx.to(i32)
-    rows = row_gather(packed27.reshape(Zb * Yb * Xb, K), idx.reshape(-1))
-    rows = rows[:, :27].float().reshape(*idx.shape, 1, 27)
-    return (rows * w27).sum(-1)
+        uz, uy, ux = axis_weights(oz, wz), axis_weights(oy, wy), \
+            axis_weights(ox, wx)
+        w27 = (uz[..., :, None, None] * uy[..., None, :, None]
+               * ux[..., None, None, :]).reshape(*uz.shape[:-1], 27)
+        i32 = torch.int32
+        idx = (bz.to(i32) * Yb + by.to(i32)) * Xb + bx.to(i32)
+        rows = row_gather(packed27.reshape(Zb * Yb * Xb, K), idx.reshape(-1))
+        rows = rows[:, :27].float().reshape(*idx.shape, 1, 27)
+        return (rows * w27).sum(-1)
 
 
 def check_pair_contract(aabb_np, packed_shape, *, n_sample: int, group: int,
@@ -687,22 +692,23 @@ def app_feature_baked(app_baked: torch.Tensor, grid_cells, coords,
     """Trilinear radiance feature [..., A] from the per-light app bake
     [L, Zc*Yc*Xc, 8*A] at normalized coords [..., 3] and light indices
     [...]: one K1 row of 8 corners x A bf16 features per point."""
-    Zc, Yc, Xc = grid_cells
-    L, cells, A8 = app_baked.shape
-    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
-    fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
-    fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
-    fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
-    ix = torch.floor(fx).clamp(0, Xc - 1)
-    iy = torch.floor(fy).clamp(0, Yc - 1)
-    iz = torch.floor(fz).clamp(0, Zc - 1)
-    wx, wy, wz = fx - ix, fy - iy, fz - iz
-    i32 = torch.int32
-    idx = (light_idx.to(i32) * cells
-           + (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32))
-    rows = row_gather(app_baked.reshape(L * cells, A8), idx.reshape(-1))
-    rows = rows.float().reshape(*idx.shape, 8, A8 // 8)
-    return (rows * _corner_weights(wx, wy, wz)[..., None]).sum(-2)
+    with span("field"):
+        Zc, Yc, Xc = grid_cells
+        L, cells, A8 = app_baked.shape
+        x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+        fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
+        fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
+        fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
+        ix = torch.floor(fx).clamp(0, Xc - 1)
+        iy = torch.floor(fy).clamp(0, Yc - 1)
+        iz = torch.floor(fz).clamp(0, Zc - 1)
+        wx, wy, wz = fx - ix, fy - iy, fz - iz
+        i32 = torch.int32
+        idx = (light_idx.to(i32) * cells
+               + (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32))
+        rows = row_gather(app_baked.reshape(L * cells, A8), idx.reshape(-1))
+        rows = rows.float().reshape(*idx.shape, 8, A8 // 8)
+        return (rows * _corner_weights(wx, wy, wz)[..., None]).sum(-2)
 
 
 def _corner_weights(wx, wy, wz) -> torch.Tensor:
@@ -734,20 +740,21 @@ def density_feature_packed(packed: torch.Tensor, coords) -> torch.Tensor:
     """Trilinear lookup of a corner-packed grid [Zc, Yc, Xc, 8] (corner
     order 4*dz + 2*dy + dx, f32 or bf16, read as f32) at coords [..., 3]:
     one K1 row per point. Not differentiable in ``packed``."""
-    Zc, Yc, Xc, _ = packed.shape
-    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
-    fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
-    fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
-    fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
-    ix = torch.floor(fx).clamp(0, Xc - 1)
-    iy = torch.floor(fy).clamp(0, Yc - 1)
-    iz = torch.floor(fz).clamp(0, Zc - 1)
-    wx, wy, wz = fx - ix, fy - iy, fz - iz
-    i32 = torch.int32
-    idx = (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32)
-    rows = row_gather(packed.reshape(Zc * Yc * Xc, 8),
-                      idx.reshape(-1)).float().reshape(*idx.shape, 8)
-    return (rows * _corner_weights(wx, wy, wz)).sum(-1)
+    with span("field"):
+        Zc, Yc, Xc, _ = packed.shape
+        x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+        fx = ((x + 1.0) * 0.5 * Xc).clamp(0.0, Xc)
+        fy = ((y + 1.0) * 0.5 * Yc).clamp(0.0, Yc)
+        fz = ((z + 1.0) * 0.5 * Zc).clamp(0.0, Zc)
+        ix = torch.floor(fx).clamp(0, Xc - 1)
+        iy = torch.floor(fy).clamp(0, Yc - 1)
+        iz = torch.floor(fz).clamp(0, Zc - 1)
+        wx, wy, wz = fx - ix, fy - iy, fz - iz
+        i32 = torch.int32
+        idx = (iz.to(i32) * Yc + iy.to(i32)) * Xc + ix.to(i32)
+        rows = row_gather(packed.reshape(Zc * Yc * Xc, 8),
+                          idx.reshape(-1)).float().reshape(*idx.shape, 8)
+        return (rows * _corner_weights(wx, wy, wz)).sum(-1)
 
 
 def sample_alpha_mask(scene: Dict, xyz):

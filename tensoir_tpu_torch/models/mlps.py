@@ -14,6 +14,7 @@ from typing import Dict
 import torch
 
 from tensoir_tpu_torch.ops.pe import positional_encoding
+from tensoir_tpu_torch.profiling import span
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -74,12 +75,13 @@ def render_fea_in_dim(app_dim: int, view_pe: int, fea_pe: int) -> int:
 
 
 def render_fea_inputs(features, viewdirs, view_pe: int, fea_pe: int):
-    parts = [features, viewdirs]
-    if fea_pe > 0:
-        parts.append(positional_encoding(features, fea_pe))
-    if view_pe > 0:
-        parts.append(positional_encoding(viewdirs, view_pe))
-    return torch.cat(parts, -1)
+    with span("mlp_inputs"):
+        parts = [features, viewdirs]
+        if fea_pe > 0:
+            parts.append(positional_encoding(features, fea_pe))
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return torch.cat(parts, -1)
 
 
 def render_pe_in_dim(app_dim: int, view_pe: int, pos_pe: int) -> int:
@@ -89,12 +91,13 @@ def render_pe_in_dim(app_dim: int, view_pe: int, pos_pe: int) -> int:
 
 
 def render_pe_inputs(pts, features, viewdirs, view_pe: int, pos_pe: int):
-    parts = [features, viewdirs]
-    if pos_pe > 0:
-        parts.append(positional_encoding(pts, pos_pe))
-    if view_pe > 0:
-        parts.append(positional_encoding(viewdirs, view_pe))
-    return torch.cat(parts, -1)
+    with span("mlp_inputs"):
+        parts = [features, viewdirs]
+        if pos_pe > 0:
+            parts.append(positional_encoding(pts, pos_pe))
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return torch.cat(parts, -1)
 
 
 def render_plain_in_dim(app_dim: int, view_pe: int) -> int:
@@ -103,10 +106,11 @@ def render_plain_in_dim(app_dim: int, view_pe: int) -> int:
 
 
 def render_plain_inputs(features, viewdirs, view_pe: int):
-    parts = [features, viewdirs]
-    if view_pe > 0:
-        parts.append(positional_encoding(viewdirs, view_pe))
-    return torch.cat(parts, -1)
+    with span("mlp_inputs"):
+        parts = [features, viewdirs]
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return torch.cat(parts, -1)
 
 
 def brdf_pe_fea_in_dim(app_dim: int, pos_pe: int, fea_pe: int) -> int:
@@ -116,12 +120,13 @@ def brdf_pe_fea_in_dim(app_dim: int, pos_pe: int, fea_pe: int) -> int:
 
 def brdf_pe_fea_inputs(pts, features, pos_pe: int, fea_pe: int):
     """MLPBRDF_PEandFeature inputs: [features, pts, PE(features), PE(pts)]."""
-    parts = [features, pts]
-    if fea_pe > 0:
-        parts.append(positional_encoding(features, fea_pe))
-    if pos_pe > 0:
-        parts.append(positional_encoding(pts, pos_pe))
-    return torch.cat(parts, -1)
+    with span("mlp_inputs"):
+        parts = [features, pts]
+        if fea_pe > 0:
+            parts.append(positional_encoding(features, fea_pe))
+        if pos_pe > 0:
+            parts.append(positional_encoding(pts, pos_pe))
+        return torch.cat(parts, -1)
 
 
 def normal_residue_in_dim(app_dim: int, pos_pe: int, fea_pe: int) -> int:
@@ -131,9 +136,10 @@ def normal_residue_in_dim(app_dim: int, pos_pe: int, fea_pe: int) -> int:
 
 def normal_residue_inputs(pts, normal, features, pos_pe: int, fea_pe: int):
     """[pts, derived normal, features, PE(features), PE(pts)]."""
-    parts = [pts, normal, features]
-    if fea_pe > 0:
-        parts.append(positional_encoding(features, fea_pe))
-    if pos_pe > 0:
-        parts.append(positional_encoding(pts, pos_pe))
-    return torch.cat(parts, -1)
+    with span("mlp_inputs"):
+        parts = [pts, normal, features]
+        if fea_pe > 0:
+            parts.append(positional_encoding(features, fea_pe))
+        if pos_pe > 0:
+            parts.append(positional_encoding(pts, pos_pe))
+        return torch.cat(parts, -1)

@@ -21,6 +21,7 @@ import torch
 
 from tensoir_tpu_torch.kernels import gather_rows
 from tensoir_tpu_torch.ops.rays import linspace
+from tensoir_tpu_torch.profiling import span
 
 
 def clip(x: torch.Tensor, lo: Optional[float],
@@ -170,9 +171,10 @@ def bilerp_plane_packed(plane: torch.Tensor, x: torch.Tensor,
     x indexes W, y indexes H. Returns [..., C].
     """
     H, W, C = plane.shape
-    packed = torch.cat([plane[:-1, :-1], plane[:-1, 1:],
-                        plane[1:, :-1], plane[1:, 1:]], -1)
-    packed = packed.reshape((H - 1) * (W - 1), 4 * C)
+    with span("plane_pack"):
+        packed = torch.cat([plane[:-1, :-1], plane[:-1, 1:],
+                            plane[1:, :-1], plane[1:, 1:]], -1)
+        packed = packed.reshape((H - 1) * (W - 1), 4 * C)
     ix = _unnormalize(x, W, True)
     iy = _unnormalize(y, H, True)
     ix0 = torch.floor(ix).clamp(0, W - 2)
@@ -207,9 +209,10 @@ def bilerp_plane_group_packed(plane: torch.Tensor, x: torch.Tensor,
     the coordinates and the plane. Returns [..., g, C].
     """
     H, W, C = plane.shape
-    packed = torch.cat([plane[dy:H - 3 + dy, dx:W - 3 + dx]
-                        for dy in range(4) for dx in range(4)], -1)
-    packed = packed.reshape((H - 3) * (W - 3), 16 * C)
+    with span("plane_pack"):
+        packed = torch.cat([plane[dy:H - 3 + dy, dx:W - 3 + dx]
+                            for dy in range(4) for dx in range(4)], -1)
+        packed = packed.reshape((H - 3) * (W - 3), 16 * C)
     ix = _unnormalize(x, W, True)
     iy = _unnormalize(y, H, True)
     ix0 = torch.floor(ix).clamp(0, W - 2)

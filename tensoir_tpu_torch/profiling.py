@@ -1,6 +1,6 @@
 """Profiling and observability (port of tensoir_tpu.profiling): a rays/s
 meter, the metrics sink (``metrics.jsonl`` plus TensorBoard event files),
-and ``torch.profiler`` trace hooks."""
+and the named spans the port opens on ``torch.profiler``'s timeline."""
 from __future__ import annotations
 
 import contextlib
@@ -10,7 +10,8 @@ import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-from torch.profiler import ProfilerActivity, profile, record_function
+import torch
+from torch.profiler import record_function
 
 from tensoir_tpu_torch.utils.tb_writer import EventWriter
 
@@ -49,27 +50,23 @@ class RayThroughputMeter:
         }
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: Optional[str]):
-    """``torch.profiler`` trace of the block (CPU and, where there is one,
-    CUDA activity), written to ``<log_dir>/trace.json`` for
-    chrome://tracing or Perfetto; a no-op when ``log_dir`` is None."""
-    if log_dir is None:
-        yield
-        return
-    import torch
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+# every name the port opens with ``span``: the step's phases
+# (train/step.py), the render's layers (render/*.py), and the leaves where
+# the field, its corner re-pack and the MLP inputs are built
+SPANS = ("forward", "backward", "all_reduce", "adam", "primary",
+         "derived_normals", "brdf_render", "bake", "secondary_march",
+         "app_stage_global", "visibility", "field", "plane_pack",
+         "mlp_inputs")
+_OFF = contextlib.nullcontext()
 
 
-def annotate(name: str):
-    """Named region on the profiler's timeline."""
-    return record_function(name)
+def span(name: str):
+    """Named range on the profiler's timeline while a profiler records;
+    otherwise one shared no-op context, since a bare ``record_function``
+    costs a dispatcher round trip per call even with no profiler."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 class MetricsLogger:

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models import mlps
@@ -32,6 +31,7 @@ from tensoir_tpu_torch.ops.interp import clip
 from tensoir_tpu_torch.ops.rays import (safe_l2_normalize, sample_ray,
                                         sample_ray_ndc, z_to_dists)
 from tensoir_tpu_torch.ops.sh import eval_sh_bases
+from tensoir_tpu_torch.profiling import span
 
 
 def shade_radiance(cfg: F.FieldConfig, params, pts, viewdirs, features):
@@ -323,7 +323,7 @@ def render_rays(
     kind = cfg.normals_kind
     if kind in ("purely_derived", "derived_plus_predicted",
                 "residue_prediction"):
-        with record_function("derived_normals"):
+        with span("derived_normals"):
             derived = F.derived_normals(
                 cfg, params, pts_sel.reshape(-1, 3)).reshape(pts_sel.shape)
     if kind == "purely_derived":

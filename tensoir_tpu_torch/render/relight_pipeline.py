@@ -23,7 +23,6 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models.env_light import EnvironmentLight
@@ -31,6 +30,7 @@ from tensoir_tpu_torch.ops.brdf import ggx_specular
 from tensoir_tpu_torch.ops.color import linear2srgb
 from tensoir_tpu_torch.ops.interp import clip, recip
 from tensoir_tpu_torch.ops.rays import safe_l2_normalize
+from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render import secondary
 from tensoir_tpu_torch.render.primary import render_rays
 from tensoir_tpu_torch.utils import metrics as M
@@ -84,7 +84,7 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
                                      "bake_visibility(cfg, params, scene)")
                 baked, coarse = vis_bakes
             B = rays.shape[0]
-            with record_function("primary"):
+            with span("primary"):
                 out = render_rays(
                     cfg, params, scene, rays,
                     torch.zeros((B,), dtype=torch.int32, device=rays.device),
@@ -120,7 +120,7 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
                 dirs = torch.cat([dirs, dirs.new_ones((pad, 3))])
                 mask = torch.cat([mask, mask.new_zeros((pad,))])
             vis = []
-            with record_function("visibility"):
+            with span("visibility"):
                 for t0 in range(0, n_tiles * vis_tile, vis_tile):
                     sl = slice(t0, t0 + vis_tile)
                     v, _ = secondary.compute_transmittance(

@@ -27,13 +27,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.ops.compositing import raw2alpha
 from tensoir_tpu_torch.ops.interp import recip as _recip
 from tensoir_tpu_torch.ops.rays import (linspace, sample_ray_equally,
                                         z_to_dists)
+from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render import primary
 
 # rows and tiles marched since the last reset (real pairs, or under the
@@ -484,7 +484,7 @@ def secondary_shading_tiled(
     Runs without gradients, as the reference's secondary pass does."""
     baked = coarse = baked27 = app_baked = None
     if use_baked:
-        with record_function("bake"):
+        with span("bake"):
             baked = F.bake_packed_sigma_grid(cfg, params, scene,
                                              max_reso=bake_reso)
             if 0 < window < n_sample:
@@ -546,7 +546,7 @@ def secondary_shading_tiled(
 
     vis, ind, tile_stats, payloads = [], [], [], []
     tile_stats_on = return_stats and not app_hoist
-    with record_function("secondary_march"):
+    with span("secondary_march"):
         for t0 in range(0, n_tiles * tile, tile):
             sl = slice(t0, t0 + tile)
             m = mask[sl]
@@ -573,7 +573,7 @@ def secondary_shading_tiled(
             MARCHED["tiles"] += 1
     vis = torch.cat(vis)
     if app_hoist:
-        with record_function("app_stage_global"):
+        with span("app_stage_global"):
             payload = {key: torch.stack([p[key] for p in payloads])
                        for key in payloads[0]}
             ind = _app_stage_global(cfg, params, payload, app_baked, tile)

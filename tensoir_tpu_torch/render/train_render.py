@@ -14,9 +14,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from tensoir_tpu_torch.models import field as F
+from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render.brdf_render import render_with_brdf
 from tensoir_tpu_torch.render.primary import render_rays
 
@@ -63,7 +63,7 @@ def render_train_batch(
     secondary_tile: int = 16384,
     normal_gt: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    with record_function("primary"):
+    with span("primary"):
         ret = render_rays(cfg, params, scene, rays, light_idx,
                           n_samples=n_samples, key=key, is_train=is_train,
                           is_relight=is_relight, white_bg=white_bg,
@@ -87,7 +87,7 @@ def render_train_batch(
         sel = torch.arange(B, device=rays.device)
     sel_valid = acc_mask[sel]
 
-    with record_function("brdf_render"):
+    with span("brdf_render"):
         rgb_sel = render_with_brdf(
             cfg, params, scene, ret["depth_map"][sel], ret["normal_map"][sel],
             ret["albedo_map"][sel], ret["roughness_map"][sel],

@@ -15,11 +15,11 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
+from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render.train_render import render_train_batch
 from tensoir_tpu_torch.train import losses as L
 from tensoir_tpu_torch.train.optim import GroupAdam, flatten
@@ -229,11 +229,11 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
         flat = flatten(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         live = _unflatten(leaves)
-        with record_function("forward"):
+        with span("forward"):
             loss, metrics = compute_loss(cfg, live, scene, batch, key, step,
                                          st, w)
         names = list(leaves)
-        with record_function("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss, [leaves[k] for k in names],
                                         allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as in
@@ -241,9 +241,9 @@ def make_train_step(cfg: F.FieldConfig, optimizer: GroupAdam, st: StepStatic,
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(names, grads)}
         if grouped:
-            with record_function("all_reduce"):
+            with span("all_reduce"):
                 grads, metrics = _reduce(mesh, grads, metrics)
-        with record_function("adam"):
+        with span("adam"):
             opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 

@@ -403,11 +403,12 @@ def test_reconstruction_defaults_to_the_card():
 def test_metrics_logger_and_trace_match_jax(tmp_path):
     """The port's metrics sink writes the JAX package's metrics.jsonl and
     event records (scalars and an image panel), read back by JAX's parser;
-    profile_trace writes a trace of what ran under annotate."""
+    a profiler's trace holds what ran under a span."""
+    from torch.profiler import ProfilerActivity, profile
+
     from tensoir_tpu.profiling import MetricsLogger as JLogger
     from tensoir_tpu.utils.tb_writer import read_events
-    from tensoir_tpu_torch.profiling import (MetricsLogger, annotate,
-                                             profile_trace)
+    from tensoir_tpu_torch.profiling import MetricsLogger, span
     img = np.random.default_rng(0).random((5, 7, 3)).astype(np.float32)
     records = {}
     for side, cls in (("jax", JLogger), ("port", MetricsLogger)):
@@ -424,10 +425,9 @@ def test_metrics_logger_and_trace_match_jax(tmp_path):
                           for e in evs])
     assert records["port"] == records["jax"]
 
-    with profile_trace(str(tmp_path / "trace")):
-        with annotate("tiny_matmul"):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("field"):
             torch.ones(8, 8) @ torch.ones(8, 8)
-    text = (tmp_path / "trace" / "trace.json").read_text()
-    assert "tiny_matmul" in text
-    with profile_trace(None):
-        pass
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    text = (tmp_path / "trace.json").read_text()
+    assert '"field"' in text and "aten::mm" in text
