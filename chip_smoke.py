@@ -828,14 +828,16 @@ def kernel_calls(path: str, counts: dict, streams=None):
     block runs, keyed (path, kernel, R, C, N); with ``streams``, also keep
     each shape's first index stream there. Wraps the port's call sites: the
     module functions that ``gather_rows`` and its backward call, and the
-    name ``models.field`` imported. Only calls that launch (N > 0) count."""
+    name ``models.field`` imported. Only calls that launch (N > 0) count:
+    while the secondary pass captures a tile graph, its K1 calls launch
+    nothing (each replay makes them again; ``render/secondary.py``)."""
     import torch
     from tensoir_tpu_torch.kernels import rows
     from tensoir_tpu_torch.models import field as field_mod
     gather, scatter = rows.row_gather, rows.row_scatter_add
 
     def note(name, R, C, idx):
-        if idx.numel() == 0:
+        if idx.numel() == 0 or torch.cuda.is_current_stream_capturing():
             return
         key = (path, name, int(R), int(C), idx.numel())
         counts[key] = counts.get(key, 0) + 1
@@ -1006,26 +1008,53 @@ def _pair_choice(record=None, replay=None):
     ``primary.compact_nonzero`` call: the hemisphere compaction's, when it
     is on, then the app-stage pair cap's of each tile of
     ``compute_radiance``) into the list ``record``, or hand out the choices
-    in ``replay`` in their place, in the same order."""
-    from tensoir_tpu_torch.render import primary
+    in ``replay`` in their place, in the same order. On the card the
+    tiles' choices are read after each replay of their tile graph, from the
+    tensors its capture chose into; choices are handed out on the CPU
+    only."""
+    import torch
+    from tensoir_tpu_torch.render import primary, secondary
     choose = primary.compact_nonzero
+    graph = secondary._TileGraph
+    capture, replayed = graph.capture, graph.replay
     replay = None if replay is None else list(replay)
+    captured = []
 
     def wrapped(score, cap):
         if replay is not None:
+            check(not score.is_cuda, "pair choices handed out on the card")
             idx, ok = replay.pop(0)
             check(idx.shape == (cap,), "replayed pair choice of another cap")
             return idx.to(score.device), ok.to(score.device)
         idx, ok = choose(score, cap)
         if record is not None:
-            record.append((idx.cpu(), ok.cpu()))
+            if torch.cuda.is_current_stream_capturing():
+                captured.append((idx, ok))
+            else:
+                record.append((idx.cpu(), ok.cpu()))
         return idx, ok
 
+    def capture_choices(self, *args):
+        captured.clear()
+        out = capture(self, *args)
+        self.choices = list(captured)
+        return out
+
+    def replay_choices(self, *xs):
+        out = replayed(self, *xs)
+        if record is not None:
+            record.extend((i.cpu(), o.cpu()) for i, o in self.choices)
+        return out
+
+    # every graph replayed here is captured here, with its choices
+    secondary._GRAPHS.clear()
     primary.compact_nonzero = wrapped
+    graph.capture, graph.replay = capture_choices, replay_choices
     try:
         yield
     finally:
         primary.compact_nonzero = choose
+        graph.capture, graph.replay = capture, replayed
     check(not replay, "pair choices left over after the replayed step")
 
 

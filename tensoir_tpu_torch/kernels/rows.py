@@ -26,6 +26,14 @@ _GATHER_SYMBOL = {torch.float32: ("row_gather_f32", "row_gather"),
                   torch.bfloat16: ("row_gather_b16", "row_gather_bf16")}
 
 
+# The secondary pass's tile graphs (``render/secondary.py``) keep K1 out
+# of the graph and launch it between the graph's pieces. While a tile is
+# captured, ``PIECES["split"](table, idx)`` stands in for each K1 call: it
+# ends the piece and returns the buffer the next piece reads. At a replay,
+# ``PIECES["out"]``, when set, is the buffer the next K1 call writes.
+PIECES = {"split": None, "out": None}
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -84,8 +92,17 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return row_gather_plain(table, idx)
     _check_cuda(table, idx)
+    if PIECES["split"] is not None:
+        return PIECES["split"](table, idx)
     n, c = idx.shape[0], table.shape[1]
-    out = torch.empty((n, c), dtype=table.dtype, device=table.device)
+    out, PIECES["out"] = PIECES["out"], None
+    if out is None:
+        out = torch.empty((n, c), dtype=table.dtype, device=table.device)
+    elif (out.shape != (n, c) or out.dtype != table.dtype
+          or out.device != table.device or not out.is_contiguous()):
+        raise ValueError(f"K1's output buffer {out.dtype} "
+                         f"{tuple(out.shape)} does not fit [{n}, {c}] "
+                         f"{table.dtype}")
     symbol, counter = _GATHER_SYMBOL[table.dtype]
     fn = build.kernel(symbol)
     with torch.cuda.device(table.device):

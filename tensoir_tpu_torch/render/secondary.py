@@ -19,15 +19,28 @@ horizon are marched, packed into a fixed number of tiles. With
 pack per group of consecutive samples instead of one 8-corner row per
 sample; with ``app_hoist`` the tiles only march, and the colour of every
 tile's selected samples is computed at once after the last tile. The whole
-pass runs without gradients, tile by tile, and never waits on the device.
+pass runs without gradients, tile by tile, and never waits on the device
+but to keep at most two replayed tiles queued there.
+
+On CUDA every tile runs the same kernels on the same shapes, so the pass
+captures one tile as CUDA graphs and replays them for each tile: a few
+launches a tile in place of a few hundred. K1 stays out of the graphs: the
+tile is captured in pieces, one ending at each K1 call, and a replay makes
+each K1 call itself between its pieces, into the buffer the next piece
+reads. A graph is kept per knob set and holds while the parameters and
+scene keep their addresses and shapes (``tile_graph_key``); CPU tensors
+take the eager tile.
 """
 from __future__ import annotations
 
+import sys
+from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from tensoir_tpu_torch.kernels import rows
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.ops.compositing import raw2alpha
 from tensoir_tpu_torch.ops.interp import recip as _recip
@@ -42,9 +55,20 @@ from tensoir_tpu_torch.render import primary
 MARCHED = {"pairs": 0, "tiles": 0}
 
 
+# tiles of ``secondary_shading_tiled`` since the last reset, each counted
+# once by how it ran: captured as a CUDA graph (its warm-up gives its
+# result), replayed from one, or eager (CPU tensors, or inside a capture)
+TILE_GRAPH = {"captures": 0, "replays": 0, "eager": 0}
+
+
 def reset_march_counts() -> None:
     for k in MARCHED:
         MARCHED[k] = 0
+
+
+def reset_tile_graph_counts() -> None:
+    for k in TILE_GRAPH:
+        TILE_GRAPH[k] = 0
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -406,10 +430,10 @@ def _app_stage_global(cfg, params, payload: Dict, app_baked,
     return ind.reshape(T, tile + 1, 3)[:, :tile]
 
 
-def _reduce_stats(tile_stats, *, n_tiles: int, app_pair_cap: int,
+def _reduce_stats(ts: Dict, *, n_tiles: int, app_pair_cap: int,
                   compact_overflow: Optional[torch.Tensor]) -> Dict:
-    """The pass's occupancy statistics from the per-tile ones."""
-    ts = {k: torch.stack([s[k] for s in tile_stats]) for k in tile_stats[0]}
+    """The pass's occupancy statistics from the per-tile ones, ``ts`` a
+    dict of [n_tiles] tensors."""
     valid = ts["valid_pairs"].sum()
     kept = ts["kept_pairs"].sum()
     stats = {
@@ -435,6 +459,250 @@ def _reduce_stats(tile_stats, *, n_tiles: int, app_pair_cap: int,
             tot > 0.0, ts["window_lost_w"].sum() / tot.clamp_min(1e-6),
             torch.ones_like(tot))
     return stats
+
+
+# the app stage's inputs that a tile of the hoisted pass hands on, in order
+_PAYLOAD = ("pts_sel", "w_sel", "dirs", "lidx", "pair_idx", "pair_valid")
+
+
+def _tile(cfg, params, scene, pts, dirs, lidx, ok, tables, knobs):
+    """One tile of ``secondary_shading_tiled``: (outputs, stat names). The
+    outputs are the visibility [tile], zero outside ``ok``, then either the
+    indirect light [tile, 3], zero outside ``ok``, or the app payload's
+    ``_PAYLOAD`` entries, then with ``return_stats`` the tile's statistics
+    stacked in the order of the names. ``tables`` are the pass's baked
+    grids (baked, coarse, baked27, app grid; None where absent), ``knobs``
+    ``compute_radiance``'s static arguments and the app grid's cells."""
+    baked, coarse, baked27, app_grid = tables
+    knobs = dict(knobs)
+    cells = knobs.pop("app_cells")
+    out = compute_radiance(
+        cfg, params, scene, pts, dirs, lidx, baked=baked, coarse=coarse,
+        baked27=baked27,
+        app_baked=None if app_grid is None else (app_grid, cells),
+        pair_ok=ok, **knobs)
+    mf = ok.to(out[0].dtype)
+    outs = [out[0] * mf]
+    if knobs["return_app_payload"]:
+        outs += [out[2][k] for k in _PAYLOAD]
+    else:
+        outs.append(out[2] * mf[:, None])
+    names = ()
+    if knobs["return_stats"]:
+        names = tuple(out[3])
+        outs.append(torch.stack([out[3][k] for k in names]))
+    return tuple(outs), names
+
+
+def _meta(t: Optional[torch.Tensor]):
+    return None if t is None else (tuple(t.shape), t.stride(), t.dtype,
+                                   t.device)
+
+
+def _tensors(tree: Dict, prefix: str = ""):
+    """(path, tensor) of every tensor in a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tensors(v, f"{prefix}{k}/")
+        elif isinstance(v, torch.Tensor):
+            yield f"{prefix}{k}", v
+
+
+def tile_graph_key(cfg, params: Dict, scene: Dict, tables, knobs: Dict,
+                   inputs):
+    """(knob set, tensor key) of a tile graph. The knob set: the field's
+    config, every static knob of the tile, and the shape, stride, dtype and
+    device of the tile's inputs; a knob set has one graph. The tensor key:
+    the same of the baked tables (copied in before the replays, so not
+    their addresses), and of every tensor in ``params`` and ``scene`` with
+    its address, which the graph reads in place. Adam's in-place updates
+    keep it; a mask, shrink or upsample replaces tensors and changes it."""
+    knob_set = (cfg, tuple(sorted(knobs.items())),
+                tuple(_meta(x) for x in inputs))
+    tensors = (tuple(_meta(t) for t in tables),
+               tuple((path, _meta(t), t.data_ptr()) for path, t in
+                     _tensors({"params": params, "scene": scene})))
+    return knob_set, tensors
+
+
+# one tile graph per knob set, a new tensor key replacing it; the knob sets
+# used last, at most _MAX_GRAPHS of them (a run uses one or two: its step's
+# and its eval's)
+_GRAPHS: Dict = {}
+_MAX_GRAPHS = 4
+# the stream of the warm-ups and captures, per device
+_SIDE: Dict = {}
+# the operator that replays a piece, once defined; the piece it replays
+_OP = None
+_REPLAYING = []
+# replayed tiles the host keeps queued on the card: before it launches a
+# tile it waits for the one _AHEAD tiles back. The device always has a
+# tile to run, and the driver's launch queue never fills: a launch into a
+# full queue blocks inside the replay's operator, and a profiler then
+# charges the kernels of that launch twice (to the operator and to the
+# block inside it)
+_AHEAD = 2
+
+
+def _replay(piece: torch.cuda.CUDAGraph, anchor: torch.Tensor) -> None:
+    """``piece.replay()`` inside an operator of its own
+    (``tensoir::replay_graph``, ``anchor`` any tensor on the card). A
+    profiler charges each kernel to the operator whose launch ran it; a
+    bare replay runs inside none, and its kernels would belong to no range
+    of the program (``profiling.span``)."""
+    global _OP
+    if _OP is None:
+        lib = torch.library.Library("tensoir", "DEF")
+        lib.define("replay_graph(Tensor anchor) -> ()")
+        lib.impl("replay_graph", lambda anchor: _REPLAYING.pop().replay(),
+                 "CUDA")
+        _OP = (lib, torch.ops.tensoir.replay_graph)
+    _REPLAYING.append(piece)
+    _OP[1](anchor)
+
+
+def _through_row_gather_fn() -> bool:
+    """Whether the K1 call being captured comes through ``RowGather.apply``
+    (``kernels.gather_rows``, an operator that a profiler charges K1's time
+    to) rather than straight from the field."""
+    f = sys._getframe(1)
+    while f is not None:
+        if f.f_code is rows.RowGather.forward.__code__:
+            return True
+        if f.f_code is _tile.__code__:
+            return False
+        f = f.f_back
+    return False
+
+
+class _TileGraph:
+    """A tile captured as CUDA graphs in pieces, K1 launched between them:
+    static copies of the tile's inputs and of the pass's tables, the
+    pieces, after each piece but the last its K1 call (whether through
+    ``RowGather``, table, index, the output buffer the next piece reads),
+    the outputs the capture allocated, and the events of the tiles queued
+    on the card."""
+
+    def __init__(self, key):
+        self.key = key
+        self.pieces = []
+        self.queued = deque()
+
+    def capture(self, tile_fn, xs, tables):
+        """Run ``tile_fn(*xs, tables)`` once on a side stream (its result is
+        the tile's), then capture it on static copies of ``xs`` and
+        ``tables``, a new piece after each K1 call; returns the first run's
+        (outputs, names)."""
+        cur = torch.cuda.current_stream()
+        side = _SIDE.get(cur.device)
+        if side is None:
+            side = _SIDE[cur.device] = torch.cuda.Stream(cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            outs, names = tile_fn(*xs, tables)
+        cur.wait_stream(side)
+        for o in outs:
+            o.record_stream(cur)
+        self.inputs = [x.clone() for x in xs]
+        self.tables = [None if t is None else t.clone() for t in tables]
+        self.calls = []
+        pool = torch.cuda.graph_pool_handle()
+
+        def begin():
+            piece = torch.cuda.CUDAGraph()
+            piece.capture_begin(pool=pool, capture_error_mode="thread_local")
+            self.pieces.append(piece)
+
+        def split(table, idx):
+            # the piece ends at K1, which each replay launches itself, the
+            # way the tile called it
+            self.pieces[-1].capture_end()
+            out = torch.empty((idx.shape[0], table.shape[1]),
+                              dtype=table.dtype, device=table.device)
+            self.calls.append((_through_row_gather_fn(), table, idx, out))
+            begin()
+            return out
+
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            begin()
+            rows.PIECES["split"] = split
+            try:
+                self.outputs, self.names = tile_fn(*self.inputs, self.tables)
+            finally:
+                rows.PIECES["split"] = None
+                self.pieces[-1].capture_end()
+        TILE_GRAPH["captures"] += 1
+        return outs, names
+
+    def load(self, tables) -> None:
+        for buf, t in zip(self.tables, tables):
+            if buf is not None:
+                buf.copy_(t)
+
+    def replay(self, *xs):
+        """The tile on inputs ``xs``: (outputs, names). The outputs are the
+        graph's own, overwritten by the next replay."""
+        while len(self.queued) >= _AHEAD:
+            self.queued.popleft().synchronize()
+        for buf, x in zip(self.inputs, xs):
+            buf.copy_(x)
+        for i, piece in enumerate(self.pieces):
+            _replay(piece, self.inputs[0])
+            if i < len(self.calls):
+                through_fn, table, idx, out = self.calls[i]
+                rows.PIECES["out"] = out
+                try:
+                    got = (rows.RowGather.apply(table, idx) if through_fn
+                           else rows.row_gather(table, idx))
+                finally:
+                    rows.PIECES["out"] = None
+                if got.data_ptr() != out.data_ptr():
+                    raise RuntimeError("K1 did not write the buffer of the "
+                                       "tile graph's next piece")
+        self.queued.append(torch.cuda.Event())
+        self.queued[-1].record()
+        TILE_GRAPH["replays"] += 1
+        return self.outputs, self.names
+
+
+def _eager_tiles(cfg, params, scene, tables, knobs):
+    """``run(pts, dirs, lidx, ok) -> (outputs, names)``: the eager tile."""
+    def run(*xs):
+        TILE_GRAPH["eager"] += 1
+        return _tile(cfg, params, scene, *xs, tables, knobs)
+    return run
+
+
+def _tile_runner(cfg, params, scene, tables, knobs, first):
+    """``run(pts, dirs, lidx, ok) -> (outputs, names)`` for the pass's
+    tiles in turn, ``first`` the first tile's inputs: on CUDA the knob
+    set's graph, captured on the first tile where its tensor key is new;
+    for CPU tensors, or inside another capture, the eager tile."""
+    if not first[0].is_cuda or torch.cuda.is_current_stream_capturing():
+        return _eager_tiles(cfg, params, scene, tables, knobs)
+    knob_set, key = tile_graph_key(cfg, params, scene, tables, knobs, first)
+    graph = _GRAPHS.pop(knob_set, None)
+    if graph is not None and graph.key == key:
+        _GRAPHS[knob_set] = graph
+        graph.load(tables)
+    else:
+        # the old graph, its pool and its buffers go before the new capture
+        while len(_GRAPHS) >= _MAX_GRAPHS:
+            del _GRAPHS[next(iter(_GRAPHS))]
+        graph = _TileGraph(key)
+
+    def run(*xs):
+        # capture and replay on the inputs' card's streams
+        with torch.cuda.device(xs[0].device):
+            if graph.pieces:
+                return graph.replay(*xs)
+            out = graph.capture(
+                lambda *ys: _tile(cfg, params, scene, *ys, knobs), xs, tables)
+        _GRAPHS[knob_set] = graph
+        return out
+    return run
 
 
 @torch.no_grad()
@@ -481,7 +749,9 @@ def secondary_shading_tiled(
     pack baked at ``group_bake_reso`` (or ``bake_reso``); the caller checks
     its contract (``F.check_pair_contract``). ``app_hoist`` computes every
     tile's colour in one batch after the march (its stats dict is empty).
-    Runs without gradients, as the reference's secondary pass does."""
+    Runs without gradients, as the reference's secondary pass does. On CUDA
+    each tile is a replay of its knob set's CUDA graphs, K1 launched
+    between them (``_tile_runner``), bit for bit the eager tile."""
     baked = coarse = baked27 = app_baked = None
     if use_baked:
         with span("bake"):
@@ -544,42 +814,38 @@ def secondary_shading_tiled(
         lidx = torch.cat([lidx, lidx.new_zeros((pad,))])
         mask = torch.cat([mask, mask.new_zeros((pad,))])
 
-    vis, ind, tile_stats, payloads = [], [], [], []
     tile_stats_on = return_stats and not app_hoist
+    tables = (baked, coarse, baked27,
+              None if app_baked is None else app_baked[0])
+    knobs = dict(n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
+                 app_cap=app_cap, app_pair_cap=app_pair_cap,
+                 march_cap=march_cap, march_group=max(march_group, 2),
+                 window=window, window_back=window_back, prepass_n=prepass_n,
+                 return_app_payload=app_hoist, return_stats=tile_stats_on,
+                 probe_window=window_probe,
+                 probe_window_back=window_probe_back,
+                 app_cells=None if app_baked is None else tuple(app_baked[1]))
+    rows = names = None     # each output of the tiles, [n_tiles, ...]
     with span("secondary_march"):
-        for t0 in range(0, n_tiles * tile, tile):
-            sl = slice(t0, t0 + tile)
-            m = mask[sl]
-            out = compute_radiance(
-                cfg, params, scene, pts[sl], dirs[sl], lidx[sl],
-                n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
-                app_cap=app_cap, app_pair_cap=app_pair_cap,
-                march_cap=march_cap, baked=baked, coarse=coarse,
-                baked27=baked27, march_group=max(march_group, 2),
-                app_baked=app_baked, window=window, window_back=window_back,
-                prepass_n=prepass_n, return_app_payload=app_hoist,
-                return_stats=tile_stats_on, pair_ok=m,
-                probe_window=window_probe,
-                probe_window_back=window_probe_back)
-            mf = m.to(out[0].dtype)
-            vis.append(out[0] * mf)
-            if app_hoist:
-                payloads.append(out[2])
-            else:
-                ind.append(out[2] * mf[:, None])
-            if tile_stats_on:
-                tile_stats.append(out[3])
-            MARCHED["pairs"] += min(tile, n_rows - t0)
+        run = _tile_runner(cfg, params, scene, tables, knobs,
+                           (pts[:tile], dirs[:tile], lidx[:tile], mask[:tile]))
+        for t in range(n_tiles):
+            sl = slice(t * tile, (t + 1) * tile)
+            outs, names = run(pts[sl], dirs[sl], lidx[sl], mask[sl])
+            if rows is None:
+                rows = [o.new_empty((n_tiles,) + o.shape) for o in outs]
+            for r, o in zip(rows, outs):
+                r[t].copy_(o)
+            MARCHED["pairs"] += min(tile, n_rows - t * tile)
             MARCHED["tiles"] += 1
-    vis = torch.cat(vis)
+    vis = rows[0].reshape(-1)
     if app_hoist:
         with span("app_stage_global"):
-            payload = {key: torch.stack([p[key] for p in payloads])
-                       for key in payloads[0]}
+            payload = dict(zip(_PAYLOAD, rows[1:]))
             ind = _app_stage_global(cfg, params, payload, app_baked, tile)
             ind = ind.reshape(-1, 3) * mask.to(ind.dtype)[:, None]
     else:
-        ind = torch.cat(ind)
+        ind = rows[1].reshape(-1, 3)
     if compact:
         # one scatter of [cap, 4] rows back to the pairs; unfilled slots
         # (marker total) land in a dump row that is cut off
@@ -593,6 +859,7 @@ def secondary_shading_tiled(
         return vis, ind
     if app_hoist:
         return vis, ind, {}
-    return vis, ind, _reduce_stats(tile_stats, n_tiles=n_tiles,
+    ts = dict(zip(names, rows[-1].t().contiguous()))
+    return vis, ind, _reduce_stats(ts, n_tiles=n_tiles,
                                    app_pair_cap=app_pair_cap,
                                    compact_overflow=compact_overflow)
