@@ -141,22 +141,24 @@ def lerp_line_matmul(line: torch.Tensor, z: torch.Tensor,
     iz0 + 1 each clipped to [0, D-1] and the weight not clipped, so the
     line extends linearly below its first node and is flat past its last;
     the value and gradients equal ``lerp_line``'s (the JAX package's CP
-    lookup) everywhere."""
+    lookup) everywhere. The matrix and its product run in the span
+    ``line_matrix``."""
     D = line.shape[0]
-    iz = _unnormalize(z, D, True)
-    M = z.new_zeros(z.shape + (D,))
-    if extrapolate:
-        iz0 = torch.floor(iz).clamp(0, D - 1)
-        w1 = (iz - iz0)[..., None]
+    with span("line_matrix"):
+        iz = _unnormalize(z, D, True)
+        M = z.new_zeros(z.shape + (D,))
+        if extrapolate:
+            iz0 = torch.floor(iz).clamp(0, D - 1)
+            w1 = (iz - iz0)[..., None]
+            i0 = iz0.long()[..., None]
+            M.scatter_add_(-1, i0, 1.0 - w1).scatter_add_(
+                -1, (i0 + 1).clamp(max=D - 1), w1)
+            return torch.matmul(M, line)
+        iz0 = torch.floor(iz).clamp(0, D - 2)
+        w1 = clip(iz - iz0, 0.0, 1.0)[..., None]
         i0 = iz0.long()[..., None]
-        M.scatter_add_(-1, i0, 1.0 - w1).scatter_add_(
-            -1, (i0 + 1).clamp(max=D - 1), w1)
+        M.scatter_(-1, i0, 1.0 - w1).scatter_(-1, i0 + 1, w1)
         return torch.matmul(M, line)
-    iz0 = torch.floor(iz).clamp(0, D - 2)
-    w1 = clip(iz - iz0, 0.0, 1.0)[..., None]
-    i0 = iz0.long()[..., None]
-    M.scatter_(-1, i0, 1.0 - w1).scatter_(-1, i0 + 1, w1)
-    return torch.matmul(M, line)
 
 
 def bilerp_plane_packed(plane: torch.Tensor, x: torch.Tensor,
