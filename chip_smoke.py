@@ -2295,7 +2295,8 @@ def phase_relight_parity(trained):
     """One relight chunk of train_run's reloaded field at full width on the
     card (K1) and on the CPU (the plain versions): RELIGHT_PARITY_RAYS rays
     spread over a relight view x 512 light samples from a 1024 x 2048
-    probe (two visibility tiles of 16,384 pairs, 96 secondary samples),
+    probe (the kept pairs of two visibility tiles' worth, packed into tiles
+    of 16,384, 96 secondary samples),
     the same uniforms, drawn once, given to both; the exact march (first
     48 occupied samples) and the fast route (window 48/16 on the 128^3
     bake, made on the card and given to both: bench_step_parity holds the
@@ -2369,7 +2370,8 @@ def phase_relight_parity(trained):
 @contextlib.contextmanager
 def _relight_probe(log: list, timing: dict):
     """Record each relight chunk call the block makes (its time by CUDA
-    events, K1/K2 launches, visibility tiles), the wall seconds of each
+    events, K1/K2 launches, visibility tiles, the (point, light sample)
+    pairs offered and kept of ``RP.VIS_PACK``), the wall seconds of each
     relight_benchmark and of the G-buffer pass of the albedo rescale
     (``timing``). Wraps ``render.relight_pipeline.make_relight_chunk_fn``
     and ``relight_benchmark`` and ``render.eval.compute_rescale_ratio``,
@@ -2388,6 +2390,7 @@ def _relight_probe(log: list, timing: dict):
         def run(*args, **kws):
             before = dict(LAUNCHES)
             tiles = secondary.MARCHED["tiles"]
+            pack = dict(RP.VIS_PACK)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -2395,6 +2398,7 @@ def _relight_probe(log: list, timing: dict):
             t1.record()
             log.append({"kind": "relight", "events": (t0, t1),
                         "tiles": secondary.MARCHED["tiles"] - tiles,
+                        **{k: RP.VIS_PACK[k] - pack[k] for k in pack},
                         "launches": {k: LAUNCHES[k] - before[k]
                                      for k in LAUNCHES}})
             return out
@@ -2436,6 +2440,26 @@ def _relight_run(argv, path: str, shapes: dict):
             time.perf_counter() - t0)
 
 
+def _vis_pack_check(chunks, vis_tile: int, want_tiles: int):
+    """(kept share, fails) of the relight chunk records: each chunk marches
+    ceil(kept / vis_tile) visibility tiles, no more than the ``want_tiles``
+    of every pair of the chunk, and some chunk marches at least one."""
+    mine = [c for c in chunks if c["kind"] == "relight"]
+    offered = sum(c["offered"] for c in mine)
+    share = sum(c["kept"] for c in mine) / max(offered, 1)
+    bad = [(c["kept"], c["tiles"]) for c in mine
+           if c["tiles"] != -(-c["kept"] // vis_tile)
+           or c["tiles"] > want_tiles]
+    fails = []
+    if bad:
+        fails.append(f"(kept pairs, tiles) of {len(bad)} chunks not packed "
+                     f"in tiles of {vis_tile}, at most {want_tiles}: "
+                     f"{bad[:4]}")
+    if not any(c["tiles"] for c in mine):
+        fails.append("no relight chunk marched a visibility tile")
+    return share, fails
+
+
 def phase_relight(work: str, ckpt: str, trained):
     """python -m tensoir_tpu_torch.scripts.relight_importance on
     configs/relighting_test/armadillo.txt, in this process, on train_run's
@@ -2443,12 +2467,14 @@ def phase_relight(work: str, ckpt: str, trained):
     (write_relight_test_scene: RELIGHT_VIEWS test views of RELIGHT_WH^2,
     five 1024 x 2048 probes): the loaders, the five lights' tables, the
     G-buffer rescale pass, every view relit under each light (800 rays a
-    chunk, 512 light samples, 25 exact visibility tiles), the artifact
-    tree. Then one view again with ``--relight_fast_vis 1``. Seconds per
-    view and of the G-buffer pass, chunks per view and light, tiles and
-    K1/K2 launches per chunk (K2 must stay 0), peak memory, the HDR decode
-    seconds per probe, PSNR/SSIM per light (sanity numbers: the ground
-    truth is rendered under 16 x 32 copies of the probes); then
+    chunk, 512 light samples, the kept pairs of the chunk's 25 tiles'
+    worth packed into exact visibility tiles), the artifact tree. Then one
+    view again with ``--relight_fast_vis 1``. Seconds per view and of the
+    G-buffer pass, chunks per view and light, tiles and K1/K2 launches per
+    chunk (K2 must stay 0), the kept share of the (point, light sample)
+    pairs (each chunk marches ceil(kept / 16384) tiles), peak memory, the
+    HDR decode seconds per probe, PSNR/SSIM per light (sanity numbers: the
+    ground truth is rendered under 16 x 32 copies of the probes); then
     relight_chunk_breakdown, one profiled chunk. Returns (scene dir, hdr
     dir), the launches of each run, their launches by shape and the chunk
     statistics of the exact run."""
@@ -2487,6 +2513,8 @@ def phase_relight(work: str, ckpt: str, trained):
     n_rays = RELIGHT_WH * RELIGHT_WH
     per_light = -(-n_rays // cfg.batch_size)
     want_tiles = -(-cfg.batch_size * 512 // cfg.secondary_tile)
+    kept_share, fails = _vis_pack_check(chunks, cfg.secondary_tile,
+                                        want_tiles)
     bench_s = timing.get("benchmark_s", [float("nan")])[0]
     res = {"phase": "relight", "views": RELIGHT_VIEWS,
            "view": [RELIGHT_WH, RELIGHT_WH], "lights": list(RELIGHT_LIGHTS),
@@ -2496,6 +2524,7 @@ def phase_relight(work: str, ckpt: str, trained):
            "gbuf_pass_s": timing.get("gbuf_pass_s", [None])[0],
            "chunks_per_view_per_light": per_light,
            "chunks": stats, "launches": launches,
+           "kept_share": kept_share,
            "launches_by_shape": by_shape(shapes, max(rel.get("chunks", 1),
                                                      1)),
            "projected_800_view_s": (800 * 800 // cfg.batch_size
@@ -2503,13 +2532,9 @@ def phase_relight(work: str, ckpt: str, trained):
                                     * rel.get("median_ms", float("nan"))
                                     / 1e3),
            "peak_mem_gb": peak, "metrics": results, "files": len(files)}
-    fails = []
     if rel.get("chunks") != per_light * len(RELIGHT_LIGHTS) * RELIGHT_VIEWS:
         fails.append(f"{rel.get('chunks')} relight chunks, not "
                      f"{per_light * len(RELIGHT_LIGHTS) * RELIGHT_VIEWS}")
-    if rel.get("tiles_per_chunk") != [want_tiles]:
-        fails.append(f"tiles per chunk {rel.get('tiles_per_chunk')}, not "
-                     f"{want_tiles}")
     if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
         fails.append(f"K1 not launched in the relight run: {launches}")
     if launches["row_scatter_add"] != 0:
@@ -2548,11 +2573,14 @@ def phase_relight(work: str, ckpt: str, trained):
                 "--basedir", os.path.join(work, "relight_log_fast")],
         "relight_fast", fast_shapes)
     stats_f = _chunk_stats(chunks_f)
+    kept_share_f, fails = _vis_pack_check(chunks_f, cfg.secondary_tile,
+                                          want_tiles)
     bench_f = timing_f.get("benchmark_s", [float("nan")])[0]
     res_f = {"phase": "relight_fast_vis", "views": 1, "wall_s": wall_f,
              "seconds_per_view": bench_f,
              "gbuf_pass_s": timing_f.get("gbuf_pass_s", [None])[0],
              "chunks": stats_f, "launches": launches_f,
+             "kept_share": kept_share_f,
              "launches_by_shape": by_shape(
                  fast_shapes, max(stats_f.get("relight", {}).get("chunks", 1),
                                   1)),
@@ -2560,7 +2588,6 @@ def phase_relight(work: str, ckpt: str, trained):
              "psnr_minus_exact": {k: results_f[k]["psnr"] - v["psnr"]
                                   for k, v in results.items()
                                   if k in results_f}}
-    fails = []
     if launches_f["row_scatter_add"] != 0 or not (
             launches_f["row_gather_bf16"] > 0):
         fails.append(f"launches {launches_f}")

@@ -6,9 +6,11 @@ mask, visibility by a transmittance march toward each, the Monte Carlo
 estimate mean(brdf * vis * L * cos / pdf), sRGB, the probe behind the
 object where acc <= 0.9, and PSNR/SSIM against the ground truth.
 
-Rays go in fixed chunks; the surface mask is dense (masked), not
-compacted. A chunk is a plain closure under ``torch.no_grad()`` on the
-device that holds the field: nothing is compiled, and K2 never runs. A
+Rays go in fixed chunks. Only the (surface point, light sample) pairs
+that count, on the surface and above its horizon, are marched: they are
+packed into full visibility tiles, and the others read visibility 0. A
+chunk is a plain closure under ``torch.no_grad()`` on the device that
+holds the field: nothing is compiled, and K2 never runs. A
 view's rays go to the device once; each chunk's two relit images (and,
 for the first light of a saved view, its G-buffer maps) come back in one
 transfer. With ``fast_vis`` the baked sigma grid and its coarse occupancy
@@ -41,6 +43,49 @@ from tensoir_tpu_torch.utils.video import write_videos
 # occupancy dilated by 3, and the 48/16 window after a 12-point prepass
 FAST_VIS = dict(window=48, window_back=16, prepass_n=12, dilate=3,
                 bake_reso=128)
+
+# (point, light sample) pairs of the relight chunks since the last reset:
+# ``offered`` every pair, ``kept`` those on the surface and above its
+# horizon, the only ones marched; kept / offered is the packing's share
+VIS_PACK = {"offered": 0, "kept": 0}
+
+
+def reset_vis_pack_counts() -> None:
+    for k in VIS_PACK:
+        VIS_PACK[k] = 0
+
+
+def visibility_of_kept_pairs(march, surface_xyz: torch.Tensor,
+                             surf2l: torch.Tensor, keep: torch.Tensor,
+                             vis_tile: int) -> torch.Tensor:
+    """Visibility [B, L] of the (point, light sample) pairs that ``keep``
+    [B, L] marks, 0 for the others. The kept pairs, in index order, are
+    packed into tiles of ``vis_tile`` (the last padded with zero points and
+    unit directions), and ``march(pts, dirs)`` gives each tile's [vis_tile]
+    transmittance. A pair's march reads its own row only and every tile
+    has the one shape, so a kept pair's visibility does not depend on where
+    in a tile it lands. The kept count is one host read a call."""
+    B, L = keep.shape
+    idx = torch.nonzero(keep.reshape(-1)).squeeze(1)
+    kept = idx.shape[0]
+    VIS_PACK["offered"] += B * L
+    VIS_PACK["kept"] += kept
+    vis = surf2l.new_zeros((B * L,))
+    if kept == 0:
+        return vis.reshape(B, L)
+    n_tiles = -(-kept // vis_tile)
+    pad = n_tiles * vis_tile - kept
+    pts = surface_xyz[idx // L]
+    dirs = surf2l.reshape(-1, 3)[idx]
+    if pad:
+        pts = torch.cat([pts, pts.new_zeros((pad, 3))])
+        dirs = torch.cat([dirs, dirs.new_ones((pad, 3))])
+    tiles = [march(pts[t0:t0 + vis_tile], dirs[t0:t0 + vis_tile])
+             for t0 in range(0, n_tiles * vis_tile, vis_tile)]
+    secondary.MARCHED["pairs"] += kept
+    secondary.MARCHED["tiles"] += n_tiles
+    vis[idx] = torch.cat(tiles)[:kept].to(vis.dtype)
+    return vis.reshape(B, L)
 
 
 def bake_visibility(cfg: F.FieldConfig, params: Dict, scene: Dict):
@@ -107,34 +152,19 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
                           None)
             cosine_mask = (cosine > 1e-6) & acc_mask[:, None]
 
-            # visibility of every (point, light sample) pair, in tiles
-            p_tot = B * n_light_samples
-            n_tiles = -(-p_tot // vis_tile)
-            pad = n_tiles * vis_tile - p_tot
-            pts = surface_xyz[:, None, :].expand(B, n_light_samples,
-                                                 3).reshape(-1, 3)
-            dirs = surf2l.reshape(-1, 3)
-            mask = cosine_mask.reshape(-1)
-            if pad:
-                pts = torch.cat([pts, pts.new_zeros((pad, 3))])
-                dirs = torch.cat([dirs, dirs.new_ones((pad, 3))])
-                mask = torch.cat([mask, mask.new_zeros((pad,))])
-            vis = []
+            def march(pts, dirs):
+                return secondary.compute_transmittance(
+                    cfg, params, scene, pts, dirs,
+                    n_sample=second_n_sample, vis_near=0.05, vis_far=1.5,
+                    march_cap=48, baked=baked, coarse=coarse,
+                    window=FAST_VIS["window"] if fast_vis else 0,
+                    window_back=FAST_VIS["window_back"],
+                    prepass_n=FAST_VIS["prepass_n"])[0]
+
             with span("visibility"):
-                for t0 in range(0, n_tiles * vis_tile, vis_tile):
-                    sl = slice(t0, t0 + vis_tile)
-                    v, _ = secondary.compute_transmittance(
-                        cfg, params, scene, pts[sl], dirs[sl],
-                        n_sample=second_n_sample, vis_near=0.05,
-                        vis_far=1.5, march_cap=48, baked=baked,
-                        coarse=coarse,
-                        window=FAST_VIS["window"] if fast_vis else 0,
-                        window_back=FAST_VIS["window_back"],
-                        prepass_n=FAST_VIS["prepass_n"])
-                    vis.append(v * mask[sl].to(v.dtype))
-                    secondary.MARCHED["pairs"] += min(vis_tile, p_tot - t0)
-                    secondary.MARCHED["tiles"] += 1
-            visibility = torch.cat(vis)[:p_tot].reshape(B, n_light_samples, 1)
+                visibility = visibility_of_kept_pairs(
+                    march, surface_xyz, surf2l, cosine_mask,
+                    vis_tile)[..., None]
 
             specular = ggx_specular(normal, surf2c, surf2l, roughness,
                                     fresnel)

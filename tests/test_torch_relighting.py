@@ -397,9 +397,10 @@ def _view_rays(s, n):
 @pytest.mark.parametrize("fast_vis", [False, True], ids=["exact", "fast"])
 def test_relight_chunk_matches_jax(setup, fast_vis):
     """One chunk of 64 rays across a test view under light 'bridge', 32 light
-    samples per ray from JAX's own uniforms, 4 visibility tiles of 512:
-    the eight outputs in JAX's order. With ``fast_vis`` both march JAX's
-    jitted bake (the port bakes once per benchmark, JAX in each call)."""
+    samples per ray from JAX's own uniforms, the kept pairs packed into
+    visibility tiles of 512: the eight outputs in JAX's order. With
+    ``fast_vis`` both march JAX's jitted bake (the port bakes once per
+    benchmark, JAX in each call)."""
     s = setup
     kw = dict(n_samples=N_SAMPLES, n_light_samples=N_LIGHT,
               second_n_sample=SEC_N, vis_tile=VIS_TILE, fast_vis=fast_vis)
@@ -420,11 +421,14 @@ def test_relight_chunk_matches_jax(setup, fast_vis):
         bakes = (conv[1]["b"], conv[1]["c"])
     reset_launch_counts()
     TSec.reset_march_counts()
+    TRP.reset_vis_pack_counts()
     got = t_fn(s["tp"], s["ts"], t(rays), None, t(RESCALE), draws=u,
                vis_bakes=bakes)
     assert sum(LAUNCHES.values()) == 0
-    assert TSec.MARCHED == {"pairs": CHUNK * N_LIGHT,
-                            "tiles": CHUNK * N_LIGHT // VIS_TILE}
+    kept = TRP.VIS_PACK["kept"]
+    assert TRP.VIS_PACK["offered"] == CHUNK * N_LIGHT
+    assert 0 < kept < CHUNK * N_LIGHT
+    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // VIS_TILE)}
     names = ("relight_without_bg", "relight_with_bg", "acc", "albedo",
              "roughness", "normal", "depth", "rgb")
     assert len(got) == len(want) == 8
