@@ -84,7 +84,7 @@ class TensoIRConfig:
     # test_new_pose machinery — the reference hardcodes 150 frames)
     n_orbit: int = 150
     # flag-gated fast secondary march for the eval suite (the canonical
-    # quality-gated window/compaction/bake config, render/eval.py
+    # quality-gated window/compaction/bake config, render/secondary.py
     # FAST_MARCH_KNOBS); 0 = the reference's exact full march
     eval_fast: int = 0
     export_mesh: int = 0

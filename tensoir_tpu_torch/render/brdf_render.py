@@ -10,6 +10,7 @@ directions the Monte Carlo mean of brdf * L * cos / pdf.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,7 +22,8 @@ from tensoir_tpu_torch.ops.brdf import ggx_specular
 from tensoir_tpu_torch.ops.color import linear2srgb
 from tensoir_tpu_torch.ops.interp import clip
 from tensoir_tpu_torch.ops.rays import safe_l2_normalize
-from tensoir_tpu_torch.render.secondary import secondary_shading_tiled
+from tensoir_tpu_torch.render.secondary import (SecondaryKnobs,
+                                                secondary_shading_tiled)
 
 
 def incident_light_dirs(cfg: F.FieldConfig, sample_method: str,
@@ -67,30 +69,10 @@ def render_with_brdf(
     *,
     sample_method: str = "stratified_sampling",
     key: Optional[torch.Generator] = None,
-    second_n_sample: int = 96,
-    second_near: float = 0.05,
-    second_far: float = 1.5,
-    secondary_tile: int = 16384,
-    second_march_cap: int = 32,
-    secondary_use_baked: bool = True,
-    secondary_bake_reso: int = 0,
-    second_window: int = 0,
-    second_window_back: int = 0,
-    second_prepass_n: int = 18,
-    coarse_dilate: int = 2,
-    secondary_compact_frac: float = 0.0,
-    second_march_group: int = 0,
-    group_bake_reso: int = 0,
-    app_bake_reso: int = 0,
-    secondary_app_hoist: bool = False,
-    second_app_cap: int = 16,
-    app_pair_frac: float = 0.0,
-    return_secondary_stats: bool = False,
-    second_window_probe: int = 0,
-    second_window_probe_back: int = 0,
+    secondary: SecondaryKnobs = SecondaryKnobs(),
 ):
     """Physically based RGB per ray, [P, 3]; with
-    ``return_secondary_stats`` also the secondary pass's statistics,
+    ``secondary.secondary_stats`` also the secondary pass's statistics,
     (rgb, stats)."""
     rays_o, rays_d = rays[:, :3], rays[:, 3:6]
     dev = rays.device
@@ -110,21 +92,10 @@ def render_with_brdf(
     if sample_method == "importance_sample":
         # importance directions crowd around the light's lobe, so far more
         # than the compaction's capacity of pairs can face a surface
-        secondary_compact_frac = 0.0
+        secondary = dataclasses.replace(secondary, secondary_compact_frac=0.0)
     sec = secondary_shading_tiled(
         cfg, params, scene, surface_xyz.detach(), surf2l, light_idx,
-        cosine > 1e-6, n_sample=second_n_sample, vis_near=second_near,
-        vis_far=second_far, tile=secondary_tile, march_cap=second_march_cap,
-        app_cap=second_app_cap, use_baked=secondary_use_baked,
-        bake_reso=secondary_bake_reso, window=second_window,
-        window_back=second_window_back, prepass_n=second_prepass_n,
-        coarse_dilate=coarse_dilate, compact_frac=secondary_compact_frac,
-        march_group=second_march_group, group_bake_reso=group_bake_reso,
-        app_bake_reso=app_bake_reso,
-        app_hoist=secondary_app_hoist, app_pair_frac=app_pair_frac,
-        return_stats=return_secondary_stats,
-        window_probe=second_window_probe,
-        window_probe_back=second_window_probe_back)
+        cosine > 1e-6, secondary)
     visibility, indirect = sec[0], sec[1]
 
     specular = ggx_specular(normal_map, surf2c, surf2l, roughness_map,
@@ -150,4 +121,4 @@ def render_with_brdf(
         rgb = (surface_brdf * light_rgbs * cosine[..., None]
                * area_weight[None, :, None]).sum(1)
     rgb = linear2srgb(clip(rgb, 0.0, 1.0))
-    return (rgb, sec[2]) if return_secondary_stats else rgb
+    return (rgb, sec[2]) if secondary.secondary_stats else rgb

@@ -20,18 +20,12 @@ import torch
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models import lighting
 from tensoir_tpu_torch.ops.resize import resize_cubic_u8
+from tensoir_tpu_torch.render.secondary import (FAST_MARCH_KNOBS,
+                                                SecondaryKnobs)
 from tensoir_tpu_torch.render.train_render import render_train_batch
 from tensoir_tpu_torch.utils import metrics as M
 from tensoir_tpu_torch.utils.png import write_png
 from tensoir_tpu_torch.utils.video import write_videos
-
-# the canonical fast-march knobs (bench.py's configuration): window march
-# over the coarse occupancy, hemisphere-pair compaction, the 128^3 sigma
-# bake and the 64^3 baked appearance
-FAST_MARCH_KNOBS = dict(
-    second_window=48, second_window_back=16, second_prepass_n=12,
-    coarse_dilate=3, secondary_compact_frac=0.5625,
-    secondary_bake_reso=128, app_bake_reso=64)
 
 
 def make_eval_chunk_fn(cfg: F.FieldConfig, *, n_samples: int, chunk: int,
@@ -51,6 +45,15 @@ def make_eval_chunk_fn(cfg: F.FieldConfig, *, n_samples: int, chunk: int,
     are the exact full secondary march (the reference's eval protocol);
     FAST_MARCH_KNOBS switch the fast one on. ``relight_ray_cap`` 0 relights
     every ray of the chunk."""
+    secondary = SecondaryKnobs(
+        second_march_cap=second_march_cap, second_window=second_window,
+        second_window_back=second_window_back,
+        second_prepass_n=second_prepass_n, coarse_dilate=coarse_dilate,
+        secondary_compact_frac=secondary_compact_frac,
+        secondary_bake_reso=secondary_bake_reso, app_bake_reso=app_bake_reso,
+        secondary_app_hoist=secondary_app_hoist,
+        second_n_sample=second_n_sample, second_near=second_near,
+        second_far=second_far, secondary_tile=secondary_tile)
 
     def chunk_fn(params, scene, rays, light_idx):
         with torch.no_grad():
@@ -59,19 +62,8 @@ def make_eval_chunk_fn(cfg: F.FieldConfig, *, n_samples: int, chunk: int,
                 n_samples=n_samples, key=None, is_train=False,
                 is_relight=is_relight, white_bg=white_bg,
                 sample_method="fixed_envirmap", app_cap=app_cap,
-                march_cap=march_cap, second_march_cap=second_march_cap,
-                relight_ray_cap=relight_ray_cap,
-                second_window=second_window,
-                second_window_back=second_window_back,
-                second_prepass_n=second_prepass_n,
-                coarse_dilate=coarse_dilate,
-                secondary_compact_frac=secondary_compact_frac,
-                secondary_bake_reso=secondary_bake_reso,
-                app_bake_reso=app_bake_reso,
-                secondary_app_hoist=secondary_app_hoist,
-                second_n_sample=second_n_sample, second_near=second_near,
-                second_far=second_far, secondary_tile=secondary_tile,
-                ndc_ray=ndc_ray)
+                march_cap=march_cap, relight_ray_cap=relight_ray_cap,
+                ndc_ray=ndc_ray, secondary=secondary)
 
     return chunk_fn, chunk
 

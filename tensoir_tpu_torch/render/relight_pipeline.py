@@ -35,14 +35,10 @@ from tensoir_tpu_torch.ops.rays import safe_l2_normalize
 from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render import secondary
 from tensoir_tpu_torch.render.primary import render_rays
+from tensoir_tpu_torch.render.secondary import FAST_MARCH_KNOBS
 from tensoir_tpu_torch.utils import metrics as M
 from tensoir_tpu_torch.utils.png import read_png, write_png
 from tensoir_tpu_torch.utils.video import write_videos
-
-# the fast visibility march's knobs: the 128^3 sigma bake, its coarse
-# occupancy dilated by 3, and the 48/16 window after a 12-point prepass
-FAST_VIS = dict(window=48, window_back=16, prepass_n=12, dilate=3,
-                bake_reso=128)
 
 # (point, light sample) pairs of the relight chunks since the last reset:
 # ``offered`` every pair, ``kept`` those on the surface and above its
@@ -91,10 +87,11 @@ def visibility_of_kept_pairs(march, surface_xyz: torch.Tensor,
 def bake_visibility(cfg: F.FieldConfig, params: Dict, scene: Dict):
     """(baked sigma grid, coarse occupancy) of the fast visibility march."""
     with torch.no_grad():
-        baked = F.bake_packed_sigma_grid(cfg, params, scene,
-                                         max_reso=FAST_VIS["bake_reso"])
-        return baked, F.bake_coarse_occupancy(baked,
-                                              dilate=FAST_VIS["dilate"])
+        baked = F.bake_packed_sigma_grid(
+            cfg, params, scene,
+            max_reso=FAST_MARCH_KNOBS["secondary_bake_reso"])
+        return baked, F.bake_coarse_occupancy(
+            baked, dilate=FAST_MARCH_KNOBS["coarse_dilate"])
 
 
 def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
@@ -113,10 +110,11 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
     The [B, n_light_samples] uniforms of the light draw come from ``key``
     (a generator on the field's device) or are given as ``draws``. With
     ``fast_vis`` visibility marches the window over ``vis_bakes`` =
-    ``bake_visibility(...)`` (FAST_VIS), which it then needs; otherwise
-    the exact VM field, on the first 48 occupied of 96 samples. As in the
-    reference, the surface is where acc > 0.5 and visibility is the nerv
-    transmittance of secondary rays over [0.05, 1.5].
+    ``bake_visibility(...)`` (FAST_MARCH_KNOBS' window, prepass, dilation
+    and bake), which it then needs; otherwise the exact VM field, on the
+    first 48 occupied of 96 samples. As in the reference, the surface is
+    where acc > 0.5 and visibility is the nerv transmittance of secondary
+    rays over [0.05, 1.5].
     ``roughness_scale`` scales the decoded roughness (material editing)."""
 
     def chunk_fn(params, scene, rays, key, rescale3, *, draws=None,
@@ -157,9 +155,10 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
                     cfg, params, scene, pts, dirs,
                     n_sample=second_n_sample, vis_near=0.05, vis_far=1.5,
                     march_cap=48, baked=baked, coarse=coarse,
-                    window=FAST_VIS["window"] if fast_vis else 0,
-                    window_back=FAST_VIS["window_back"],
-                    prepass_n=FAST_VIS["prepass_n"])[0]
+                    window=(FAST_MARCH_KNOBS["second_window"] if fast_vis
+                            else 0),
+                    window_back=FAST_MARCH_KNOBS["second_window_back"],
+                    prepass_n=FAST_MARCH_KNOBS["second_prepass_n"])[0]
 
             with span("visibility"):
                 visibility = visibility_of_kept_pairs(
@@ -224,8 +223,8 @@ def relight_benchmark(
         # the window march's contract against this checkpoint's (possibly
         # shrunk) box
         F.check_march_contract(scene["aabb"].cpu().numpy(),
-                               prepass_n=FAST_VIS["prepass_n"],
-                               dilate=FAST_VIS["dilate"])
+                               prepass_n=FAST_MARCH_KNOBS["second_prepass_n"],
+                               dilate=FAST_MARCH_KNOBS["coarse_dilate"])
         vis_bakes = bake_visibility(cfg, params, scene)
     light_names = [n for n in dataset.light_names if n in env.rgbs]
     rescale3 = torch.as_tensor(

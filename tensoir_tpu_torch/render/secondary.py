@@ -6,21 +6,24 @@ direction) pairs (port of tensoir_tpu.render.secondary:
 Each pair marches equally spaced samples toward the light, in one of three
 ways:
 - through the per-step baked, corner-packed bf16 sigma grid, one K1 row per
-  sample: all ``n_sample`` samples (the default), or with ``window`` only
-  the ``window`` samples of the 96-sample grid that a prepass of the coarse
-  occupancy finds around the occupied span (the window march);
-- through the exact VM field on the first ``march_cap`` occupied samples.
+  sample: all ``second_n_sample`` samples (the default), or with
+  ``second_window`` only that many samples of the 96-sample grid, which a
+  prepass of the coarse occupancy finds around the occupied span (the
+  window march);
+- through the exact VM field on the first ``second_march_cap`` occupied
+  samples.
 The pairs whose march picks up weight then get the radiance field's colour
 on their top-k samples, a fixed number of pairs per tile, from the VM
 factors or from the baked per-light appearance grid (one K1 row of bf16
-corners per sample). With ``compact_frac`` only the pairs above the
-horizon are marched, packed into a fixed number of tiles. With
-``march_group`` the window march reads one K1 row of a 27-corner bf16 block
-pack per group of consecutive samples instead of one 8-corner row per
-sample; with ``app_hoist`` the tiles only march, and the colour of every
-tile's selected samples is computed at once after the last tile. The whole
-pass runs without gradients, tile by tile, and never waits on the device
-but to keep at most two replayed tiles queued there.
+corners per sample). With ``secondary_compact_frac`` only the pairs above
+the horizon are marched, packed into a fixed number of tiles. With
+``second_march_group`` the window march reads one K1 row of a 27-corner
+bf16 block pack per group of consecutive samples instead of one 8-corner
+row per sample; with ``secondary_app_hoist`` the tiles only march, and the
+colour of every tile's selected samples is computed at once after the last
+tile. These knobs travel as one ``SecondaryKnobs``. The whole pass runs
+without gradients, tile by tile, and never waits on the device but to keep
+at most two replayed tiles queued there.
 
 On CUDA every tile runs the same kernels on the same shapes, so the pass
 captures one tile as CUDA graphs and replays them for each tile: a few
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import sys
 from collections import deque
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -48,6 +52,47 @@ from tensoir_tpu_torch.ops.rays import (linspace, sample_ray_equally,
                                         z_to_dists)
 from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render import primary
+
+
+@dataclass(frozen=True)
+class SecondaryKnobs:
+    """The knobs of the secondary march (``secondary_shading_tiled``), under
+    the names ``TensoIRConfig`` and ``train.step.StepStatic`` give them; what
+    each one does is set out beside its field in ``config.py``
+    (``second_march_cap`` is the config's ``march_cap_secondary``,
+    ``second_n_sample`` its ``second_nSample``). The defaults are the
+    training step's."""
+    second_march_cap: int = 32
+    secondary_use_baked: bool = True
+    secondary_bake_reso: int = 0
+    second_window: int = 0
+    second_window_back: int = 0
+    second_prepass_n: int = 18
+    coarse_dilate: int = 2
+    secondary_compact_frac: float = 0.0
+    second_march_group: int = 0
+    group_bake_reso: int = 0
+    app_bake_reso: int = 0
+    secondary_app_hoist: bool = False
+    second_app_cap: int = 16
+    app_pair_frac: float = 0.0
+    secondary_stats: bool = False
+    second_window_probe: int = 0
+    second_window_probe_back: int = 0
+    second_n_sample: int = 96
+    second_near: float = 0.05
+    second_far: float = 1.5
+    secondary_tile: int = 16384
+
+
+# the canonical fast-march knobs (bench.py's configuration): window march
+# over the coarse occupancy, hemisphere-pair compaction, the 128^3 sigma
+# bake and the 64^3 baked appearance; the relight benchmark's fast
+# visibility march takes its window, prepass, dilation and bake
+FAST_MARCH_KNOBS = dict(
+    second_window=48, second_window_back=16, second_prepass_n=12,
+    coarse_dilate=3, secondary_compact_frac=0.5625,
+    secondary_bake_reso=128, app_bake_reso=64)
 
 # rows and tiles marched since the last reset (real pairs, or under the
 # hemisphere compaction every row of its fixed capacity; not the padding of
@@ -714,67 +759,51 @@ def secondary_shading_tiled(
     surf2light: torch.Tensor,    # [P, L, 3]
     light_idx: torch.Tensor,     # [P] int
     pair_mask: torch.Tensor,     # [P, L] bool (cosine mask)
-    *,
-    n_sample: int,
-    vis_near: float,
-    vis_far: float,
-    tile: int = 16384,
-    app_cap: int = 16,
-    march_cap: int = 32,
-    use_baked: bool = True,
-    bake_reso: int = 0,
-    window: int = 0,
-    window_back: int = 0,
-    prepass_n: int = 18,
-    coarse_dilate: int = 2,
-    compact_frac: float = 0.0,
-    march_group: int = 0,
-    group_bake_reso: int = 0,
-    app_bake_reso: int = 0,
-    app_hoist: bool = False,
-    app_pair_frac: float = 0.0,
-    return_stats: bool = False,
-    window_probe: int = 0,
-    window_probe_back: int = 0,
+    secondary: SecondaryKnobs,
 ):
     """Visibility [P, L, 1] and indirect light [P, L, 3] of every (surface
-    point, light dir) pair, marched ``tile`` pairs at a time; pairs outside
-    ``pair_mask`` get zeros. With ``return_stats`` also the pass's cap
-    occupancy statistics (a dict of 0-d tensors).
+    point, light dir) pair, marched ``secondary_tile`` pairs at a time;
+    pairs outside ``pair_mask`` get zeros. With ``secondary_stats`` also
+    the pass's cap occupancy statistics (a dict of 0-d tensors).
 
-    ``compact_frac`` in (0, 1) marches only the pairs in ``pair_mask``,
-    packed in order into ceil(P L compact_frac / tile) tiles; pairs past
-    that capacity get zeros (``compact_overflow_frac`` counts them).
-    ``march_group`` > 1 groups the window march's samples on a 27-corner
-    pack baked at ``group_bake_reso`` (or ``bake_reso``); the caller checks
-    its contract (``F.check_pair_contract``). ``app_hoist`` computes every
+    ``secondary_compact_frac`` in (0, 1) marches only the pairs in
+    ``pair_mask``, packed in order into ceil(P L frac / tile) tiles; pairs
+    past that capacity get zeros (``compact_overflow_frac`` counts them).
+    ``second_march_group`` > 1 groups the window march's samples on a
+    27-corner pack baked at ``group_bake_reso`` (or
+    ``secondary_bake_reso``); the caller checks its contract
+    (``F.check_pair_contract``). ``secondary_app_hoist`` computes every
     tile's colour in one batch after the march (its stats dict is empty).
     Runs without gradients, as the reference's secondary pass does. On CUDA
     each tile is a replay of its knob set's CUDA graphs, K1 launched
     between them (``_tile_runner``), bit for bit the eager tile."""
+    k = secondary
+    tile, window = k.secondary_tile, k.second_window
+    group = k.second_march_group
     baked = coarse = baked27 = app_baked = None
-    if use_baked:
+    if k.secondary_use_baked:
         with span("bake"):
             baked = F.bake_packed_sigma_grid(cfg, params, scene,
-                                             max_reso=bake_reso)
-            if 0 < window < n_sample:
-                coarse = F.bake_coarse_occupancy(baked, dilate=coarse_dilate)
-                if march_group > 1:
+                                             max_reso=k.secondary_bake_reso)
+            if 0 < window < k.second_n_sample:
+                coarse = F.bake_coarse_occupancy(baked,
+                                                 dilate=k.coarse_dilate)
+                if group > 1:
                     # groups must not straddle the front/back seam
-                    kf = window - window_back
-                    if kf % march_group or window_back % march_group:
+                    back = k.second_window_back
+                    if (window - back) % group or back % group:
                         raise ValueError(
-                            f"second_march_group={march_group} must divide "
-                            f"both the front window ({kf}) and the back "
-                            f"window ({window_back})")
+                            f"second_march_group={group} must divide "
+                            f"both the front window ({window - back}) and "
+                            f"the back window ({back})")
                     baked27 = F.bake_pair_packed_sigma_grid(
                         cfg, params, scene,
-                        max_reso=group_bake_reso or bake_reso)
+                        max_reso=k.group_bake_reso or k.secondary_bake_reso)
             # CP has no appearance bake: it keeps the exact app stage
-            if app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
+            if k.app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
                 grid = F.bake_app_feature_grid(cfg, params,
-                                               max_reso=app_bake_reso)
-                cells = F.app_bake_cells(cfg, params, app_bake_reso)
+                                               max_reso=k.app_bake_reso)
+                cells = F.app_bake_cells(cfg, params, k.app_bake_reso)
                 assert int(np.prod(cells)) == grid.shape[1], (cells,
                                                               grid.shape)
                 app_baked = (grid, cells)
@@ -785,15 +814,15 @@ def secondary_shading_tiled(
     lidx = light_idx[:, None].expand(P, L).reshape(-1)
     mask = pair_mask.reshape(-1)
     total = P * L
-    compact = 0.0 < compact_frac < 1.0
+    compact = 0.0 < k.secondary_compact_frac < 1.0
     compact_overflow = None
     if compact:
         # march only the pairs above the horizon, in order, up to cap
-        cap = -(-int(total * compact_frac) // tile) * tile
+        cap = -(-int(total * k.secondary_compact_frac) // tile) * tile
         cidx, cvalid = primary.compact_nonzero(mask, cap)
         src = cidx.clamp(max=total - 1)
         pts, dirs, lidx = pts[src], dirs[src], lidx[src]
-        if return_stats:
+        if k.secondary_stats:
             n_in = mask.sum(dtype=torch.float32)
             compact_overflow = ((n_in - cvalid.sum(dtype=torch.float32))
                                 .clamp_min(0.0) / n_in.clamp_min(1.0))
@@ -803,8 +832,8 @@ def secondary_shading_tiled(
     else:
         n_rows = total
         app_pair_cap = tile // 4
-    if 0.0 < app_pair_frac <= 1.0:
-        app_pair_cap = max(1, int(tile * app_pair_frac))
+    if 0.0 < k.app_pair_frac <= 1.0:
+        app_pair_cap = max(1, int(tile * k.app_pair_frac))
 
     n_tiles = -(-n_rows // tile)
     pad = n_tiles * tile - n_rows
@@ -814,16 +843,19 @@ def secondary_shading_tiled(
         lidx = torch.cat([lidx, lidx.new_zeros((pad,))])
         mask = torch.cat([mask, mask.new_zeros((pad,))])
 
-    tile_stats_on = return_stats and not app_hoist
+    hoist = k.secondary_app_hoist
     tables = (baked, coarse, baked27,
               None if app_baked is None else app_baked[0])
-    knobs = dict(n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
-                 app_cap=app_cap, app_pair_cap=app_pair_cap,
-                 march_cap=march_cap, march_group=max(march_group, 2),
-                 window=window, window_back=window_back, prepass_n=prepass_n,
-                 return_app_payload=app_hoist, return_stats=tile_stats_on,
-                 probe_window=window_probe,
-                 probe_window_back=window_probe_back,
+    # compute_radiance's static arguments, under its own names
+    knobs = dict(n_sample=k.second_n_sample, vis_near=k.second_near,
+                 vis_far=k.second_far, app_cap=k.second_app_cap,
+                 app_pair_cap=app_pair_cap, march_cap=k.second_march_cap,
+                 march_group=max(group, 2), window=window,
+                 window_back=k.second_window_back,
+                 prepass_n=k.second_prepass_n, return_app_payload=hoist,
+                 return_stats=k.secondary_stats and not hoist,
+                 probe_window=k.second_window_probe,
+                 probe_window_back=k.second_window_probe_back,
                  app_cells=None if app_baked is None else tuple(app_baked[1]))
     rows = names = None     # each output of the tiles, [n_tiles, ...]
     with span("secondary_march"):
@@ -839,7 +871,7 @@ def secondary_shading_tiled(
             MARCHED["pairs"] += min(tile, n_rows - t * tile)
             MARCHED["tiles"] += 1
     vis = rows[0].reshape(-1)
-    if app_hoist:
+    if hoist:
         with span("app_stage_global"):
             payload = dict(zip(_PAYLOAD, rows[1:]))
             ind = _app_stage_global(cfg, params, payload, app_baked, tile)
@@ -855,9 +887,9 @@ def secondary_shading_tiled(
     else:
         vis, ind = vis[:total, None], ind[:total]
     vis, ind = vis.reshape(P, L, 1), ind.reshape(P, L, 3)
-    if not return_stats:
+    if not k.secondary_stats:
         return vis, ind
-    if app_hoist:
+    if hoist:
         return vis, ind, {}
     ts = dict(zip(names, rows[-1].t().contiguous()))
     return vis, ind, _reduce_stats(ts, n_tiles=n_tiles,

@@ -19,6 +19,7 @@ from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.profiling import span
 from tensoir_tpu_torch.render.brdf_render import render_with_brdf
 from tensoir_tpu_torch.render.primary import render_rays
+from tensoir_tpu_torch.render.secondary import SecondaryKnobs
 
 
 def render_train_batch(
@@ -38,29 +39,9 @@ def render_train_batch(
     march_cap: int = 0,
     march_select: str = "scatter",
     march_group: int = 0,
-    second_march_cap: int = 32,
-    secondary_use_baked: bool = True,
-    secondary_bake_reso: int = 0,
-    second_window: int = 0,
-    second_window_back: int = 0,
-    second_prepass_n: int = 18,
-    coarse_dilate: int = 2,
-    secondary_compact_frac: float = 0.0,
-    second_march_group: int = 0,
-    group_bake_reso: int = 0,
-    app_bake_reso: int = 0,
-    secondary_app_hoist: bool = False,
-    second_app_cap: int = 16,
-    app_pair_frac: float = 0.0,
-    secondary_stats: bool = False,
-    second_window_probe: int = 0,
-    second_window_probe_back: int = 0,
     ndc_ray: bool = False,
     relight_ray_cap: int = 1024,
-    second_n_sample: int = 96,
-    second_near: float = 0.05,
-    second_far: float = 1.5,
-    secondary_tile: int = 16384,
+    secondary: SecondaryKnobs = SecondaryKnobs(),
     normal_gt: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     with span("primary"):
@@ -92,25 +73,8 @@ def render_train_batch(
             cfg, params, scene, ret["depth_map"][sel], ret["normal_map"][sel],
             ret["albedo_map"][sel], ret["roughness_map"][sel],
             ret["fresnel_map"][sel], rays[sel], light_idx[sel],
-            sample_method=sample_method, key=key,
-            second_n_sample=second_n_sample, second_near=second_near,
-            second_far=second_far, secondary_tile=secondary_tile,
-            second_march_cap=second_march_cap,
-            secondary_use_baked=secondary_use_baked,
-            secondary_bake_reso=secondary_bake_reso,
-            second_window=second_window,
-            second_window_back=second_window_back,
-            second_prepass_n=second_prepass_n, coarse_dilate=coarse_dilate,
-            secondary_compact_frac=secondary_compact_frac,
-            second_march_group=second_march_group,
-            group_bake_reso=group_bake_reso,
-            app_bake_reso=app_bake_reso,
-            secondary_app_hoist=secondary_app_hoist,
-            second_app_cap=second_app_cap, app_pair_frac=app_pair_frac,
-            return_secondary_stats=secondary_stats,
-            second_window_probe=second_window_probe,
-            second_window_probe_back=second_window_probe_back)
-    if secondary_stats:
+            sample_method=sample_method, key=key, secondary=secondary)
+    if secondary.secondary_stats:
         rgb_sel, sec_stats = rgb_sel
         ret.update({f"sec/{k}": v for k, v in sec_stats.items()})
     rgb_sel = torch.where(sel_valid[:, None], rgb_sel,

@@ -10,7 +10,8 @@ rays and the gradients are averaged over the group before the update.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from functools import cached_property
 from typing import Dict, Optional
 
 import numpy as np
@@ -20,6 +21,7 @@ from tensoir_tpu_torch.device import DeviceLike, resolve_device
 from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 from tensoir_tpu_torch.profiling import span
+from tensoir_tpu_torch.render.secondary import SecondaryKnobs
 from tensoir_tpu_torch.render.train_render import render_train_batch
 from tensoir_tpu_torch.train import losses as L
 from tensoir_tpu_torch.train.optim import GroupAdam, flatten
@@ -88,6 +90,12 @@ class StepStatic:
     # no march jitter, no random background
     deterministic: bool = False
 
+    @cached_property
+    def secondary(self) -> SecondaryKnobs:
+        """The secondary march's knobs: this step's fields of their names."""
+        return SecondaryKnobs(**{f.name: getattr(self, f.name)
+                                 for f in fields(SecondaryKnobs)})
+
 
 def compute_loss(cfg: F.FieldConfig, params, scene, batch,
                  key: Optional[torch.Generator], step: int,
@@ -100,26 +108,8 @@ def compute_loss(cfg: F.FieldConfig, params, scene, batch,
         white_bg=st.white_bg, sample_method=st.sample_method,
         app_cap=st.app_cap, march_cap=st.march_cap,
         march_select=st.march_select, march_group=st.march_group,
-        second_march_cap=st.second_march_cap,
-        secondary_use_baked=st.secondary_use_baked,
-        secondary_bake_reso=st.secondary_bake_reso,
-        second_window=st.second_window,
-        second_window_back=st.second_window_back,
-        second_prepass_n=st.second_prepass_n, coarse_dilate=st.coarse_dilate,
-        secondary_compact_frac=st.secondary_compact_frac,
-        second_march_group=st.second_march_group,
-        group_bake_reso=st.group_bake_reso,
-        app_bake_reso=st.app_bake_reso,
-        secondary_app_hoist=st.secondary_app_hoist,
-        second_app_cap=st.second_app_cap,
-        app_pair_frac=st.app_pair_frac,
-        secondary_stats=st.secondary_stats,
-        second_window_probe=st.second_window_probe,
-        second_window_probe_back=st.second_window_probe_back,
         ndc_ray=st.ndc_ray, relight_ray_cap=st.relight_ray_cap,
-        second_n_sample=st.second_n_sample, second_near=st.second_near,
-        second_far=st.second_far, secondary_tile=st.secondary_tile,
-        normal_gt=batch.get("normal_gt"))
+        secondary=st.secondary, normal_gt=batch.get("normal_gt"))
 
     loss_rgb = ((ret["rgb_map"] - batch["rgbs"]) ** 2).mean()
     total = loss_rgb

@@ -387,8 +387,9 @@ def test_an_eager_cp_pass_opens_line_matrix_in_every_tile():
     TSec.reset_tile_graph_counts()
     tile = 16
     opened = _line_matrix_spans(lambda: TSec.secondary_shading_tiled(
-        cfg, params, scene, pts, dirs, lidx, mask, n_sample=8,
-        vis_near=0.05, vis_far=1.5, tile=tile, app_cap=2))
+        cfg, params, scene, pts, dirs, lidx, mask, TSec.SecondaryKnobs(
+            second_n_sample=8, second_near=0.05, second_far=1.5,
+            secondary_tile=tile, second_app_cap=2)))
     n_tiles = P * L // tile
     assert TSec.TILE_GRAPH["eager"] == n_tiles
     assert opened == 3 * n_tiles

@@ -59,7 +59,7 @@ from tensoir_tpu_torch.train import optim as TO
 from tensoir_tpu_torch.train import step as TS
 
 from torch_parity import (AABB, jax_field, port_cfg, port_field, small_cfg,
-                          t, to_numpy)
+                          t, tiled_knobs, to_numpy)
 
 GRID = (24, 20, 16)
 SEC = dict(n_sample=16, vis_near=0.05, vis_far=1.5)
@@ -365,7 +365,7 @@ def test_secondary_shading_tiled_fast_knobs_match_jax(masked, compact_frac,
     TSec.reset_march_counts()
     tvis, tind, tst = TSec.secondary_shading_tiled(
         port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
-        torch.from_numpy(mask), **kw)
+        torch.from_numpy(mask), tiled_knobs(**kw))
     # compacted: the 768 rows of ceil(1280 * 0.5625 / 256) = 3 tiles;
     # otherwise the 1280 pairs in 5 tiles
     assert TSec.MARCHED == ({"pairs": 768, "tiles": 3} if compact_frac

@@ -39,7 +39,8 @@ from tensoir_tpu_torch.render import secondary as TSec
 from tensoir_tpu_torch.train.loop import resolve_march_group as t_resolve
 
 from torch_parity import (as_np, masked_jax_field,  # noqa: F401
-                          one_torch_thread, port_cfg, port_field, t)
+                          one_torch_thread, port_cfg, port_field, t,
+                          tiled_knobs)
 
 SEC = dict(n_sample=64, vis_near=0.05, vis_far=1.5)
 WIN = dict(window=48, window_back=16, prepass_n=24)
@@ -283,7 +284,8 @@ def test_secondary_tiled_grouped_matches_jax(masked, kw, one_torch_thread):
     TSec.reset_march_counts()
     args = (port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
             torch.from_numpy(mask))
-    tvis, tind = TSec.secondary_shading_tiled(*args, **base, **kw)
+    tvis, tind = TSec.secondary_shading_tiled(*args,
+                                              tiled_knobs(**base, **kw))
     np.testing.assert_allclose(tvis.numpy(), np.asarray(jvis), **OWN_BAKE)
     np.testing.assert_allclose(tind.numpy(), np.asarray(jind), **OWN_BAKE)
     assert TSec.MARCHED["tiles"] == (
@@ -292,7 +294,8 @@ def test_secondary_tiled_grouped_matches_jax(masked, kw, one_torch_thread):
         return   # its 27-corner pack is baked coarser than the 8-corner one
     # visibility as the single-sample window march's, up to the sum order
     plain = {k: v for k, v in kw.items() if k == "compact_frac"}
-    svis, _ = TSec.secondary_shading_tiled(*args, **base, **plain)
+    svis, _ = TSec.secondary_shading_tiled(*args,
+                                           tiled_knobs(**base, **plain))
     np.testing.assert_allclose(tvis.numpy(), svis.numpy(), atol=3e-4,
                                rtol=1e-3)
 
@@ -310,7 +313,7 @@ def test_secondary_tiled_group_rejects_odd_window(masked):
         TSec.secondary_shading_tiled(
             port_cfg(jcfg), tp, ts, torch.zeros((4, 3)),
             torch.ones((4, 4, 3)), torch.zeros(4, dtype=torch.int32),
-            torch.ones((4, 4), dtype=torch.bool), **kw)
+            torch.ones((4, 4), dtype=torch.bool), tiled_knobs(**kw))
     assert str(got.value) == str(want.value)
 
 
@@ -327,9 +330,9 @@ def test_secondary_app_hoist_exact(masked, compact, one_torch_thread):
               app_bake_reso=32)
     args = (port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
             torch.from_numpy(mask))
-    v0, i0 = TSec.secondary_shading_tiled(*args, **kw)
-    v1, i1, stats = TSec.secondary_shading_tiled(*args, app_hoist=True,
-                                                 return_stats=True, **kw)
+    v0, i0 = TSec.secondary_shading_tiled(*args, tiled_knobs(**kw))
+    v1, i1, stats = TSec.secondary_shading_tiled(
+        *args, tiled_knobs(app_hoist=True, return_stats=True, **kw))
     assert stats == {}
     np.testing.assert_allclose(v1.numpy(), v0.numpy(), atol=1e-6)
     np.testing.assert_allclose(i1.numpy(), i0.numpy(), atol=1e-6)

@@ -66,7 +66,7 @@ from tensoir_tpu_torch.utils.png import read_png
 from tensoir_tpu_torch.utils.video import write_videos
 
 from torch_parity import (jax_field, one_torch_thread, port_cfg,  # noqa: F401
-                          port_field, small_cfg, t)
+                          port_field, small_cfg, split_knobs, t)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -308,9 +308,10 @@ def test_render_with_brdf_gt_light_matches_jax(setup):
                           jnp.asarray(rough), jnp.asarray(fres),
                           jnp.asarray(rays), jnp.asarray(lidx),
                           secondary_use_baked=False, **kw)
+    rest, sec = split_knobs(dict(kw, secondary_use_baked=False))
     got = t_brdf(port_cfg(jcfg), s["tp"], ts, t(depth), t(normal),
                  t(albedo), t(rough), t(fres), t(rays), t(lidx, torch.int32),
-                 secondary_use_baked=False, **kw)
+                 **rest, secondary=sec)
     np.testing.assert_allclose(_np(got), np.asarray(want), **MARCH)
     assert (np.asarray(want) > 0.05).any()
 

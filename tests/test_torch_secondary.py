@@ -40,7 +40,8 @@ from tensoir_tpu_torch.models import field as TF
 from tensoir_tpu_torch.render import secondary as TSec
 from tensoir_tpu_torch.render.brdf_render import render_with_brdf as t_brdf
 
-from torch_parity import jax_field, port_cfg, port_field, small_cfg, t
+from torch_parity import (jax_field, port_cfg, port_field, small_cfg,
+                          split_knobs, t, tiled_knobs)
 
 MARCH = dict(rtol=2e-5, atol=2e-6)
 OWN_BAKE = dict(rtol=1e-3, atol=1e-4)
@@ -168,7 +169,7 @@ def test_secondary_shading_tiled_matches_jax(masked, use_baked):
     TSec.reset_march_counts()
     tvis, tind = TSec.secondary_shading_tiled(
         port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
-        torch.from_numpy(mask), **kw)
+        torch.from_numpy(mask), tiled_knobs(**kw))
     # 640 pairs in three tiles of 256, the last one padded
     assert TSec.MARCHED == {"pairs": P * L, "tiles": 3}
     assert tvis.shape == (P, L, 1) and tind.shape == (P, L, 3)
@@ -205,7 +206,7 @@ def test_secondary_knobs_not_ported_raise(masked, kw):
                           jnp.asarray(lidx), jnp.asarray(mask), **knobs)
     tvis, tind = TSec.secondary_shading_tiled(
         port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
-        torch.from_numpy(mask), **knobs)
+        torch.from_numpy(mask), tiled_knobs(**knobs))
     np.testing.assert_allclose(_np(tvis), np.asarray(jvis), **OWN_BAKE)
     np.testing.assert_allclose(_np(tind), np.asarray(jind), **OWN_BAKE)
     assert np.asarray(jvis)[mask].min() < 0.5 < np.asarray(jvis)[mask].max()
@@ -257,8 +258,10 @@ def test_render_with_brdf_matches_jax_with_gradients(masked, use_baked):
     leaves = [t(x).requires_grad_(True)
               for x in (normal, albedo, rough, np.asarray(jp["lgt_sgs"]))]
     tp = dict(tp, lgt_sgs=leaves[3])
+    rest, sec = split_knobs(kw)
     got = t_brdf(port_cfg(jcfg), tp, ts, t(depth), leaves[0], leaves[1],
-                 leaves[2], t(fres), t(rays), t(lidx, torch.int32), **kw)
+                 leaves[2], t(fres), t(rays), t(lidx, torch.int32), **rest,
+                 secondary=sec)
     np.testing.assert_allclose(_np(got), np.asarray(want),
                                **(OWN_BAKE if use_baked else MARCH))
     w = np.asarray(want)

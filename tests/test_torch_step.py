@@ -29,14 +29,17 @@ from tensoir_tpu.train.loop import field_config_from as j_field_config_from
 from tensoir_tpu_torch import config as TC
 from tensoir_tpu_torch.models import field as TF
 from tensoir_tpu_torch.models import lifecycle as TLC
+from tensoir_tpu_torch.render import brdf_render as TBR
 from tensoir_tpu_torch.render.primary import render_rays as t_render_rays
+from tensoir_tpu_torch.render.secondary import SecondaryKnobs
 from tensoir_tpu_torch.render.train_render import \
     render_train_batch as t_render_train_batch
 from tensoir_tpu_torch.train import optim as TO
 from tensoir_tpu_torch.train import step as TS
 
 from torch_parity import (AABB, assert_tree_close, j_render_rays, jax_field,
-                          port_cfg, port_field, rays, small_cfg, t)
+                          port_cfg, port_field, rays, small_cfg,
+                          split_knobs, t)
 
 B, S = 64, 48
 
@@ -105,8 +108,10 @@ def test_unported_paths_raise():
                 app_bake_reso=12, secondary_bake_reso=12, second_app_cap=4,
                 app_pair_frac=0.5, secondary_stats=True)
     for kw in ({}, fast):
+        rest, sec = split_knobs(dict(base, **kw))
         ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
-                                   t(lidx, torch.int32), **base, **kw)
+                                   t(lidx, torch.int32), **rest,
+                                   secondary=sec)
         assert ret["rgb_with_brdf_map"].shape == (B, 3)
     assert "sec/app_pair_occupancy" in ret
     # the grouped secondary march on the fast knobs' window (front 2, back
@@ -117,15 +122,16 @@ def test_unported_paths_raise():
     j_train = jax.jit(functools.partial(JTR.render_train_batch, **base,
                                         **group), static_argnums=0)
     jret = j_train(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx))
+    rest, sec = split_knobs(dict(base, **group))
     ret = t_render_train_batch(port_cfg(jcfg), tp, ts, t(r),
-                               t(lidx, torch.int32), **base, **group)
+                               t(lidx, torch.int32), **rest, secondary=sec)
     np.testing.assert_allclose(ret["rgb_with_brdf_map"].numpy(),
                                np.asarray(jret["rgb_with_brdf_map"]),
                                rtol=1e-3, atol=1e-4)
+    rest, sec = split_knobs(dict(base, key=torch.Generator().manual_seed(0)))
     imp = t_render_train_batch(
         port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
-        sample_method="importance_sample",
-        **dict(base, key=torch.Generator().manual_seed(0)))
+        sample_method="importance_sample", **rest, secondary=sec)
     assert bool(torch.isfinite(imp["rgb_with_brdf_map"]).all())
     # the grouped march's own bake knob is a field like JAX's
     for kw in (dict(group_bake_reso=64), fast):
@@ -138,6 +144,53 @@ def test_unported_paths_raise():
 def _weights(lr_factor):
     return dict(ortho=0.0, l1=8e-5, tv_density=0.05, tv_app=0.005,
                 lr_factor=lr_factor, n_iters=80000, relight_start=10000)
+
+
+# a value other than the default for each field of SecondaryKnobs
+KNOB_VALUES = dict(
+    second_march_cap=7, secondary_use_baked=False, secondary_bake_reso=20,
+    second_window=8, second_window_back=4, second_prepass_n=10,
+    coarse_dilate=1, secondary_compact_frac=0.5, second_march_group=2,
+    group_bake_reso=12, app_bake_reso=10, secondary_app_hoist=True,
+    second_app_cap=5, app_pair_frac=0.25, secondary_stats=True,
+    second_window_probe=8, second_window_probe_back=4, second_n_sample=12,
+    second_near=0.1, second_far=1.25, secondary_tile=96)
+
+
+@pytest.mark.parametrize("name", list(KNOB_VALUES))
+def test_step_static_hands_each_knob_to_the_march(name, monkeypatch):
+    """A field of ``SecondaryKnobs`` set on ``StepStatic`` reaches
+    ``secondary_shading_tiled`` through ``compute_loss``, every other
+    field of the knobs at its default."""
+    assert list(KNOB_VALUES) == [f.name for f in
+                                 dataclasses.fields(SecondaryKnobs)]
+    value = KNOB_VALUES[name]
+    assert getattr(SecondaryKnobs(), name) != value
+
+    class Reached(Exception):
+        pass
+
+    got = []
+
+    def tiled(*args):
+        got.append(args[-1])
+        raise Reached
+
+    monkeypatch.setattr(TBR, "secondary_shading_tiled", tiled)
+    cfg = TF.FieldConfig(density_n_comp=(4, 4, 4), app_n_comp=(6, 6, 6),
+                         app_dim=8, feature_c=16, num_sgs=8, envmap_h=4,
+                         envmap_w=8)
+    params, scene = TF.init_field_params(torch.Generator().manual_seed(0),
+                                         cfg, (12, 12, 12), AABB,
+                                         device="cpu")
+    r, lidx, rgbs = _inputs(4)
+    batch = {"rays": t(r), "rgbs": t(rgbs), "light_idx": t(lidx, torch.int32)}
+    st = TS.StepStatic(n_samples=S, is_relight=True, white_bg=True,
+                       relight_ray_cap=8, deterministic=True, **{name: value})
+    with pytest.raises(Reached):
+        TS.compute_loss(cfg, params, scene, batch, None, 5, st,
+                        TS.LossWeights())
+    assert got == [dataclasses.replace(SecondaryKnobs(), **{name: value})]
 
 
 def test_compute_loss_matches_jax():

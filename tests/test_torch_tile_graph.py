@@ -51,26 +51,29 @@ SIZES = {
 # resolution)
 CASES = {
     "armadillo": dict(),
-    "window": dict(window="W", window_back="WB", prepass_n=18),
-    "compaction": dict(compact_frac=0.5625),
-    "grouped": dict(window="W", window_back="WB", prepass_n=18,
-                    march_group=2, group_bake_reso="R"),
-    "hoist": dict(app_hoist=True),
-    "stats": dict(return_stats=True, window_probe="W",
-                  window_probe_back="WB"),
+    "window": dict(second_window="W", second_window_back="WB",
+                   second_prepass_n=18),
+    "compaction": dict(secondary_compact_frac=0.5625),
+    "grouped": dict(second_window="W", second_window_back="WB",
+                    second_prepass_n=18, second_march_group=2,
+                    group_bake_reso="R"),
+    "hoist": dict(secondary_app_hoist=True),
+    "stats": dict(secondary_stats=True, second_window_probe="W",
+                  second_window_probe_back="WB"),
     "app_bake": dict(app_bake_reso="R"),
-    "exact": dict(use_baked=False, march_cap=8),
+    "exact": dict(secondary_use_baked=False, second_march_cap=8),
     "cp": dict(),
 }
 
 
-def _knobs(case: str, dev: str) -> dict:
+def _knobs(case: str, dev: str) -> TSec.SecondaryKnobs:
     s = SIZES[dev]
     names = {"W": s["window"], "WB": s["window_back"], "R": s["reso"]}
     kw = {k: names.get(v, v) if isinstance(v, str) else v
           for k, v in CASES[case].items()}
-    return dict(n_sample=s["n_sample"], vis_near=0.05, vis_far=1.5,
-                tile=s["tile"], **kw)
+    return TSec.SecondaryKnobs(second_n_sample=s["n_sample"],
+                               second_near=0.05, second_far=1.5,
+                               secondary_tile=s["tile"], **kw)
 
 
 def _field(dev: str, decomp: str = "vm"):
@@ -112,50 +115,47 @@ def _pairs(cfg, dev: str, seed: int = 1):
 
 @torch.no_grad()
 def eager_pass(cfg, params, scene, surf_pts, surf2light, light_idx,
-               pair_mask, *, n_sample, vis_near, vis_far, tile,
-               app_cap=16, march_cap=32, use_baked=True, bake_reso=0,
-               window=0, window_back=0, prepass_n=18, coarse_dilate=2,
-               compact_frac=0.0, march_group=0, group_bake_reso=0,
-               app_bake_reso=0, app_hoist=False, app_pair_frac=0.0,
-               return_stats=False, window_probe=0, window_probe_back=0):
-    """The pass as a loop of eager ``compute_radiance`` calls, one a tile,
-    each tile's results collected and joined after the loop."""
+               pair_mask, k):
+    """The pass on the knobs ``k`` as a loop of eager ``compute_radiance``
+    calls, one a tile, each tile's results collected and joined after the
+    loop."""
+    tile = k.secondary_tile
     baked = coarse = baked27 = app_baked = None
-    if use_baked:
+    if k.secondary_use_baked:
         baked = TF.bake_packed_sigma_grid(cfg, params, scene,
-                                          max_reso=bake_reso)
-        if 0 < window < n_sample:
-            coarse = TF.bake_coarse_occupancy(baked, dilate=coarse_dilate)
-            if march_group > 1:
+                                          max_reso=k.secondary_bake_reso)
+        if 0 < k.second_window < k.second_n_sample:
+            coarse = TF.bake_coarse_occupancy(baked, dilate=k.coarse_dilate)
+            if k.second_march_group > 1:
                 baked27 = TF.bake_pair_packed_sigma_grid(
                     cfg, params, scene,
-                    max_reso=group_bake_reso or bake_reso)
-        if app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
+                    max_reso=k.group_bake_reso or k.secondary_bake_reso)
+        if k.app_bake_reso > 0 and cfg.decomp in ("vm", "vm_stacked"):
             app_baked = (TF.bake_app_feature_grid(cfg, params,
-                                                  max_reso=app_bake_reso),
-                         TF.app_bake_cells(cfg, params, app_bake_reso))
+                                                  max_reso=k.app_bake_reso),
+                         TF.app_bake_cells(cfg, params, k.app_bake_reso))
     P, L, _ = surf2light.shape
     pts = surf_pts[:, None, :].expand(P, L, 3).reshape(-1, 3)
     dirs = surf2light.reshape(-1, 3)
     lidx = light_idx[:, None].expand(P, L).reshape(-1)
     mask = pair_mask.reshape(-1)
     total = P * L
-    compact = 0.0 < compact_frac < 1.0
+    compact = 0.0 < k.secondary_compact_frac < 1.0
     compact_overflow = None
     if compact:
-        cap = -(-int(total * compact_frac) // tile) * tile
+        cap = -(-int(total * k.secondary_compact_frac) // tile) * tile
         cidx, cvalid = primary.compact_nonzero(mask, cap)
         src = cidx.clamp(max=total - 1)
         pts, dirs, lidx = pts[src], dirs[src], lidx[src]
-        if return_stats:
+        if k.secondary_stats:
             n_in = mask.sum(dtype=torch.float32)
             compact_overflow = ((n_in - cvalid.sum(dtype=torch.float32))
                                 .clamp_min(0.0) / n_in.clamp_min(1.0))
         mask, n_rows, app_pair_cap = cvalid, cap, tile // 2
     else:
         n_rows, app_pair_cap = total, tile // 4
-    if 0.0 < app_pair_frac <= 1.0:
-        app_pair_cap = max(1, int(tile * app_pair_frac))
+    if 0.0 < k.app_pair_frac <= 1.0:
+        app_pair_cap = max(1, int(tile * k.app_pair_frac))
     n_tiles = -(-n_rows // tile)
     pad = n_tiles * tile - n_rows
     if pad:
@@ -164,19 +164,23 @@ def eager_pass(cfg, params, scene, surf_pts, surf2light, light_idx,
         lidx = torch.cat([lidx, lidx.new_zeros((pad,))])
         mask = torch.cat([mask, mask.new_zeros((pad,))])
     vis, ind, tile_stats, payloads = [], [], [], []
-    stats_on = return_stats and not app_hoist
+    app_hoist = k.secondary_app_hoist
+    stats_on = k.secondary_stats and not app_hoist
     for t0 in range(0, n_tiles * tile, tile):
         sl = slice(t0, t0 + tile)
         m = mask[sl]
         out = TSec.compute_radiance(
             cfg, params, scene, pts[sl], dirs[sl], lidx[sl],
-            n_sample=n_sample, vis_near=vis_near, vis_far=vis_far,
-            app_cap=app_cap, app_pair_cap=app_pair_cap, march_cap=march_cap,
+            n_sample=k.second_n_sample, vis_near=k.second_near,
+            vis_far=k.second_far, app_cap=k.second_app_cap,
+            app_pair_cap=app_pair_cap, march_cap=k.second_march_cap,
             baked=baked, coarse=coarse, baked27=baked27,
-            march_group=max(march_group, 2), app_baked=app_baked,
-            window=window, window_back=window_back, prepass_n=prepass_n,
-            return_app_payload=app_hoist, return_stats=stats_on, pair_ok=m,
-            probe_window=window_probe, probe_window_back=window_probe_back)
+            march_group=max(k.second_march_group, 2), app_baked=app_baked,
+            window=k.second_window, window_back=k.second_window_back,
+            prepass_n=k.second_prepass_n, return_app_payload=app_hoist,
+            return_stats=stats_on, pair_ok=m,
+            probe_window=k.second_window_probe,
+            probe_window_back=k.second_window_probe_back)
         mf = m.to(out[0].dtype)
         vis.append(out[0] * mf)
         if app_hoist:
@@ -200,7 +204,7 @@ def eager_pass(cfg, params, scene, surf_pts, surf2light, light_idx,
     else:
         vis, ind = vis[:total, None], ind[:total]
     vis, ind = vis.reshape(P, L, 1), ind.reshape(P, L, 3)
-    if not return_stats:
+    if not k.secondary_stats:
         return vis, ind
     if app_hoist:
         return vis, ind, {}
@@ -215,10 +219,10 @@ def _need(dev: str) -> None:
         pytest.skip("needs an NVIDIA GPU with CUDA")
 
 
-def _run(fn, *args, **kw):
+def _run(fn, *args):
     """(fn's result, the K1/K2 launches it counted)."""
     reset_launch_counts()
-    out = fn(*args, **kw)
+    out = fn(*args)
     if out[0].is_cuda:
         torch.cuda.synchronize()
     return out, dict(LAUNCHES)
@@ -236,19 +240,19 @@ def _assert_equal(got, want) -> None:
 
 
 def _tiles(pairs, kw) -> int:
-    n = pairs[3].numel()
-    if 0.0 < kw.get("compact_frac", 0.0) < 1.0:
-        n = -(-int(n * kw["compact_frac"]) // kw["tile"]) * kw["tile"]
-    return -(-n // kw["tile"])
+    n, tile = pairs[3].numel(), kw.secondary_tile
+    if 0.0 < kw.secondary_compact_frac < 1.0:
+        n = -(-int(n * kw.secondary_compact_frac) // tile) * tile
+    return -(-n // tile)
 
 
 def _check_pass(dev, cfg, params, scene, pairs, kw, counts) -> None:
     """The pass against the eager loop, bit for bit and launch for launch,
     and the tile counts it adds to ``TILE_GRAPH`` (captures, replays)."""
-    want, want_launches = _run(eager_pass, cfg, params, scene, *pairs, **kw)
+    want, want_launches = _run(eager_pass, cfg, params, scene, *pairs, kw)
     TSec.reset_tile_graph_counts()
     got, got_launches = _run(TSec.secondary_shading_tiled, cfg, params,
-                             scene, *pairs, **kw)
+                             scene, *pairs, kw)
     _assert_equal(got, want)
     assert got_launches == want_launches
     n = _tiles(pairs, kw)
@@ -328,7 +332,7 @@ def test_profiler_sees_the_replayed_tiles(monkeypatch):
     cfg, params, scene = _field("cuda")
     pairs = _pairs(cfg, "cuda")
     kw = _knobs("armadillo", "cuda")
-    TSec.secondary_shading_tiled(cfg, params, scene, *pairs, **kw)
+    TSec.secondary_shading_tiled(cfg, params, scene, *pairs, kw)
     graphed = TSec._tile_runner
 
     def eager(cfg, params, scene, tables, knobs, first):
@@ -350,7 +354,7 @@ def test_profiler_sees_the_replayed_tiles(monkeypatch):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            TSec.secondary_shading_tiled(cfg, params, scene, *pairs, **kw)
+            TSec.secondary_shading_tiled(cfg, params, scene, *pairs, kw)
             torch.cuda.synchronize()
         march_us = sum(e.device_time_total for e in prof.events()
                        if e.name == "secondary_march"
@@ -372,7 +376,7 @@ def test_cpu_tiles_never_capture():
     kw = _knobs("armadillo", "cpu")
     TSec.reset_tile_graph_counts()
     for _ in range(2):
-        TSec.secondary_shading_tiled(cfg, params, scene, *pairs, **kw)
+        TSec.secondary_shading_tiled(cfg, params, scene, *pairs, kw)
     n = _tiles(pairs, kw)
     assert TSec.TILE_GRAPH == {"captures": 0, "replays": 0, "eager": 2 * n}
     assert not TSec._GRAPHS

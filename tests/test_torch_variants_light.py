@@ -26,7 +26,7 @@ from tensoir_tpu_torch.render import brdf_render as TBR
 
 from torch_parity import (as_np, masked_jax_field,  # noqa: F401
                           one_torch_thread, port_cfg, port_field, small_cfg,
-                          t)
+                          split_knobs, t)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -148,14 +148,16 @@ def test_render_with_brdf_estimators_match_jax(method, monkeypatch):
                         lambda *a, **k: replayed)
     compacted = []
     real_tiled = TBR.secondary_shading_tiled
-    monkeypatch.setattr(TBR, "secondary_shading_tiled", lambda *a, **k: (
-        compacted.append(k["compact_frac"]), real_tiled(*a, **k))[1])
+    monkeypatch.setattr(TBR, "secondary_shading_tiled", lambda *a: (
+        compacted.append(a[-1].secondary_compact_frac), real_tiled(*a))[1])
     leaves = [t(x).requires_grad_(True) for x in (
         s["normal"], s["albedo"], s["rough"], np.asarray(jp["lgt_sgs"]))]
+    rest, sec = split_knobs(kw)
     got = TBR.render_with_brdf(
         port_cfg(jcfg), dict(tp, lgt_sgs=leaves[3]), ts, t(s["depth"]),
         leaves[0], leaves[1], leaves[2], t(s["fres"]), t(s["rays"]),
-        t(lidx, torch.int32), key=torch.Generator().manual_seed(0), **kw)
+        t(lidx, torch.int32), key=torch.Generator().manual_seed(0), **rest,
+        secondary=sec)
     np.testing.assert_allclose(as_np(got), np.asarray(want), **MAPS)
     w = np.asarray(want)
     assert (w > 0.02).any() and (w < 0.999).all()

@@ -32,7 +32,7 @@ from tensoir_tpu_torch.render.train_render import \
 
 from torch_parity import (as_np, masked_jax_field,  # noqa: F401
                           one_torch_thread, port_cfg, port_field, rays,
-                          small_cfg, t)
+                          small_cfg, split_knobs, t)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -116,8 +116,10 @@ def test_gt_normals_replace_the_normal_map_in_the_train_renderer():
                       static_argnames=tuple(kw) + ("is_train",))
     jout = j_train(jcfg, jp, js, jnp.asarray(r), jnp.asarray(lidx), key=None,
                    is_train=False, normal_gt=jnp.asarray(ngt), **kw)
+    rest, sec = split_knobs(kw)
     tout = t_render_train(port_cfg(jcfg), tp, ts, t(r), t(lidx, torch.int32),
-                          key=None, is_train=False, normal_gt=t(ngt), **kw)
+                          key=None, is_train=False, normal_gt=t(ngt), **rest,
+                          secondary=sec)
     np.testing.assert_array_equal(as_np(tout["normal_map"]), ngt)
     for k in ("rgb_with_brdf_map", "rgb_map", "normal_map"):
         np.testing.assert_allclose(as_np(tout[k]), as_np(jout[k]), err_msg=k,

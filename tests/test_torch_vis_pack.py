@@ -26,6 +26,8 @@ from portbench.tests import tiny  # noqa: E402
 from tensoir_tpu_torch.render import relight_pipeline as TRP  # noqa: E402
 from tensoir_tpu_torch.render import secondary as TSec  # noqa: E402
 
+FAST = TSec.FAST_MARCH_KNOBS
+
 SEED = 2 ** 31 + 11
 B, L, SEC_N, TILE = 32, 16, 96, 64
 LIGHT = "held_out_0"
@@ -53,9 +55,9 @@ def sides():
         env.add_light(LIGHT, bscene.env_maps(1, h, w, SEED, "cpu")[0])
         with torch.no_grad():
             baked = field.bake_packed_sigma_grid(
-                fcfg, params, scn, max_reso=TRP.FAST_VIS["bake_reso"])
+                fcfg, params, scn, max_reso=FAST["secondary_bake_reso"])
             bakes = (baked, field.bake_coarse_occupancy(
-                baked, dilate=TRP.FAST_VIS["dilate"]))
+                baked, dilate=FAST["coarse_dilate"]))
         out[ref] = dict(rp=rp, cfg=fcfg, params=params, scene=scn, n=n,
                         env=env, bakes=bakes)
     out["rays"] = eval_chunk.test_view_rays(traffic, "cpu")
@@ -163,9 +165,9 @@ def test_every_pair_kept_packs_the_dense_tiles(sides, fast_vis):
                 side["cfg"], side["params"], side["scene"], p, d,
                 n_sample=SEC_N, vis_near=0.05, vis_far=1.5, march_cap=48,
                 baked=baked, coarse=coarse,
-                window=TRP.FAST_VIS["window"] if fast_vis else 0,
-                window_back=TRP.FAST_VIS["window_back"],
-                prepass_n=TRP.FAST_VIS["prepass_n"])[0]
+                window=FAST["second_window"] if fast_vis else 0,
+                window_back=FAST["second_window_back"],
+                prepass_n=FAST["second_prepass_n"])[0]
         return march
 
     # the reference's loop: every pair in index order, the last tile padded

@@ -15,6 +15,7 @@ from tensoir_tpu.models import lifecycle as JLC
 from tensoir_tpu.render.primary import render_rays as _j_render_rays
 from tensoir_tpu.utils.bench_scene import seed_solid_blob
 from tensoir_tpu_torch.models import field as TF
+from tensoir_tpu_torch.render.secondary import SecondaryKnobs
 from tensoir_tpu_torch.weights import params_from_numpy
 
 AABB = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
@@ -130,6 +131,36 @@ def assert_tree_close(t_tree, j_tree, rtol, atol, path=""):
         np.testing.assert_allclose(
             v.detach().cpu().float().numpy(), np.asarray(j_tree[k], np.float32),
             rtol=rtol, atol=atol, err_msg=f"{path}{k}")
+
+
+# the JAX package's ``secondary_shading_tiled`` keywords -> the fields of
+# the port's ``SecondaryKnobs``
+TILED_NAMES = dict(
+    n_sample="second_n_sample", vis_near="second_near", vis_far="second_far",
+    tile="secondary_tile", app_cap="second_app_cap",
+    march_cap="second_march_cap", use_baked="secondary_use_baked",
+    bake_reso="secondary_bake_reso", window="second_window",
+    window_back="second_window_back", prepass_n="second_prepass_n",
+    coarse_dilate="coarse_dilate", compact_frac="secondary_compact_frac",
+    march_group="second_march_group", group_bake_reso="group_bake_reso",
+    app_bake_reso="app_bake_reso", app_hoist="secondary_app_hoist",
+    app_pair_frac="app_pair_frac", return_stats="secondary_stats",
+    window_probe="second_window_probe",
+    window_probe_back="second_window_probe_back")
+
+
+def tiled_knobs(**kw) -> SecondaryKnobs:
+    """The port's knobs of JAX's ``secondary_shading_tiled`` keywords."""
+    return SecondaryKnobs(**{TILED_NAMES[k]: v for k, v in kw.items()})
+
+
+def split_knobs(kw: dict):
+    """(the other keywords, ``SecondaryKnobs``) of keywords given to JAX's
+    ``render_with_brdf`` or ``render_train_batch``, which name the march's
+    knobs as the port's fields do."""
+    fields = {f.name for f in dataclasses.fields(SecondaryKnobs)}
+    return ({k: v for k, v in kw.items() if k not in fields},
+            SecondaryKnobs(**{k: v for k, v in kw.items() if k in fields}))
 
 
 def t(x, dtype=torch.float32):
