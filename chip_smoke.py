@@ -12,6 +12,8 @@
     python3 chip_smoke.py --grouped  # build, the three grouped_* phases
                                      # and the grouped rows' kernel cases
                                      # only; ends the same way
+    python3 chip_smoke.py --line-taps  # build and the line-taps kernel's
+                                       # cases only; ends the same way
 
 Phases, one JSON line each, in this order:
   build        compile every CUDA kernel of the port from its source (nvcc,
@@ -85,9 +87,10 @@ Phases, one JSON line each, in this order:
   eval         evaluation_iter(test_all=True, compute_extra_metrics=True)
                of train_run's reloaded ckpt_final on one EVAL_WH x EVAL_WH
                test view of the shadow scene, with its PNGs, as the CLI's
-               final render_test runs it: seconds per view, chunks, tiles
-               and K1/K2 launches per chunk (K2 must stay 0), peak memory,
-               the metrics; then eval_breakdown, one profiled chunk
+               final render_test runs it: seconds per view, chunks, tiles,
+               launches per chunk (K2 must stay 0, the line taps launch)
+               and line lookups by route, peak memory, the metrics; then
+               eval_breakdown, one profiled chunk
   cli_run      python -m tensoir_tpu_torch.train_tensoir on
                configs/single_light/armadillo.txt, in this process, on a
                rotated-lights scene written to a temporary directory (3
@@ -97,7 +100,8 @@ Phases, one JSON line each, in this order:
                shrink, one upsample to 300^3, relight iterations with two
                evals, ckpt_final, the final render_test; then render-only
                from ckpt_final, whose metrics must equal the run's bit for
-               bit. Its launches are the summary line's (MAIN_PATH)
+               bit; every kernel must launch. Its launches are the summary
+               line's (MAIN_PATH)
   relight_parity
                one relight chunk of train_run's reloaded field at full
                width, 64 rays x 512 light samples of a 1024x2048 probe (two
@@ -110,8 +114,9 @@ Phases, one JSON line each, in this order:
                writes to a temporary directory (RELIGHT_VIEWS views of
                RELIGHT_WH x RELIGHT_WH, five 1024x2048 probes): seconds
                per view and of the G-buffer pass, chunks per view and
-               light, tiles and K1/K2 launches per chunk (K2 must stay 0),
-               peak memory, HDR decode seconds, PSNR/SSIM per light (a
+               light, tiles, launches per chunk (K2 must stay 0, the line
+               taps launch) and line lookups by route, peak memory, HDR
+               decode seconds, PSNR/SSIM per light (a
                sanity number), the artifact tree; relight_fast_vis, one
                view again with --relight_fast_vis 1;
                relight_chunk_breakdown, one profiled chunk (the name
@@ -123,7 +128,8 @@ Phases, one JSON line each, in this order:
                images must differ
   mesh_export  python -m tensoir_tpu_torch.scripts.export_mesh on train_run's
                ckpt_final, in this process: dense_alpha's seconds and its
-               K1 launches (3 K1-f32 and one K1-bf16 per chunk, K2 none),
+               launches (3 K1-f32, one K1-bf16 and 3 line taps per chunk,
+               K2 none),
                the host extraction's seconds, vertices and faces, the share
                of edges shared by two faces (> 0.99), the card's alpha
                against the CPU's on one x-slab
@@ -146,7 +152,7 @@ Phases, one JSON line each, in this order:
                the shrink, one upsample to 300^3, 8 relight iterations,
                ckpt_final, the final render_test of every light: median
                step ms and launches per step per phase, run seconds, PSNR
-               per light; every kernel must launch
+               per light; every row kernel must launch
   variants_step_parity
                one deterministic radiance step of each model variant
                (TensorCP, the stacked TensorVM, the MLP_PE, MLP, SH and RGB
@@ -241,7 +247,10 @@ Phases, one JSON line each, in this order:
                mesh export, the multi-light CLI runs, the data-parallel
                phases and the variants' steps and CLI runs (per
                decomposition), and at the eval's density and appearance
-               lookups; and the grouped marches' rows (grouped_*): K1-f32
+               lookups; the line-taps kernel (line_taps) at the main
+               path's line lookups without a gradient, against its plain
+               version and the matrix route (library_ms), in ulps of the
+               taps' scale; and the grouped marches' rows (grouped_*): K1-f32
                at the 16-corner block rows and K2 at their gradient,
                K1-bf16 at the 27-corner rows as 27 bf16 (54 B) and padded
                to 32 (64 B)
@@ -285,7 +294,16 @@ KERNEL_SOURCES = {
     "row_scatter_add": (
         "tensoir_tpu_torch/csrc/row_scatter_add.cu",
         "scripts/bench_pallas_scatter.py:37 (make_scatter_add.kernel)"),
+    # no Pallas kernel: the JAX package's line lookup is an XLA dot on the
+    # dense two-tap matrix
+    "line_taps": (
+        "tensoir_tpu_torch/csrc/line_taps.cu",
+        "none (tensoir_tpu/ops/interp.py:284, lerp_line_matmul's XLA dot)"),
 }
+# the row kernels: every training path launches all three (K2 only where a
+# gradient flows); the line-taps kernel launches only where a line lookup
+# takes no gradient, which the eval, the relight runs and the CLI run must
+ROW_KERNELS = ("row_gather", "row_gather_bf16", "row_scatter_add")
 
 
 class SmokeFailure(RuntimeError):
@@ -658,6 +676,7 @@ def phase_kernels(streams, busiest):
     for g, case in block.items():
         out[f"grouped_block16_g{g}"] = case
     out["eval_lookups"] = eval_lookup_cases(busiest["eval"])
+    out["line_taps"] = line_taps_cases()
     out["instep"] = instep_cases(streams)
     out["edge"] = edge_cases()
     emit({"phase": "kernels", "ok": True, "cases": out})
@@ -824,17 +843,22 @@ def phase_step_parity():
 
 @contextlib.contextmanager
 def kernel_calls(path: str, counts: dict, streams=None):
-    """Count the row kernels' launches by shape into ``counts`` while the
+    """Count the kernels' launches by shape into ``counts`` while the
     block runs, keyed (path, kernel, R, C, N); with ``streams``, also keep
-    each shape's first index stream there. Wraps the port's call sites: the
-    module functions that ``gather_rows`` and its backward call, and the
-    name ``models.field`` imported. Only calls that launch (N > 0) count:
-    while the secondary pass captures a tile graph, its K1 calls launch
-    nothing (each replay makes them again; ``render/secondary.py``)."""
+    each row kernel's shape's first index stream there. Wraps the port's
+    call sites: the module functions that ``gather_rows`` and its backward
+    call, the name ``models.field`` imported, and ``ops.interp.line_taps``
+    (R, C: a line table's nodes and width). Only calls that launch (N > 0)
+    count: while the secondary pass captures a tile graph, its K1 calls
+    launch nothing (each replay makes them again; ``render/secondary.py``),
+    and neither do its line taps, which its replays launch with no Python
+    call: their launches are in ``LAUNCHES``, not by shape here."""
     import torch
     from tensoir_tpu_torch.kernels import rows
     from tensoir_tpu_torch.models import field as field_mod
-    gather, scatter = rows.row_gather, rows.row_scatter_add
+    from tensoir_tpu_torch.ops import interp
+    gather, scatter, taps = (rows.row_gather, rows.row_scatter_add,
+                             interp.line_taps)
 
     def note(name, R, C, idx):
         if idx.numel() == 0 or torch.cuda.is_current_stream_capturing():
@@ -853,13 +877,22 @@ def kernel_calls(path: str, counts: dict, streams=None):
         note("row_scatter_add", num_rows, val.shape[1], idx)
         return scatter(idx, val, num_rows)
 
+    def counted_taps(lines, coords, axes, extrapolate=False):
+        n = coords.numel() // 3
+        if n and not torch.cuda.is_current_stream_capturing():
+            key = (path, "line_taps", *map(int, lines[0].shape), n)
+            counts[key] = counts.get(key, 0) + 1
+        return taps(lines, coords, axes, extrapolate)
+
     rows.row_gather = field_mod.row_gather = counted_gather
     rows.row_scatter_add = counted_scatter
+    interp.line_taps = counted_taps
     try:
         yield
     finally:
         rows.row_gather = field_mod.row_gather = gather
         rows.row_scatter_add = scatter
+        interp.line_taps = taps
 
 
 def by_shape(counts: dict, steps: int) -> list:
@@ -912,12 +945,12 @@ def phase_train(streams):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "psnr_last": float(m["psnr"])}
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(v > 0 for v in launches.values()))
+          and all(launches[k] > 0 for k in ROW_KERNELS))
     res["ok"] = ok
     emit(res)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ROW_KERNELS),
           f"a kernel was not launched on the main path: {launches}")
 
     emit_breakdown("breakdown", lambda: step_fn(params, state, scene, batch,
@@ -1280,13 +1313,13 @@ def phase_relight_train(streams):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "psnr_last": float(mets[-1]["psnr"])}
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(v > 0 for v in launches.values())
+          and all(launches[k] > 0 for k in ROW_KERNELS)
           and marched["pairs"] == 10 * pairs_per_step)
     res["ok"] = ok
     emit(res)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"relight loss did not fall: {losses}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ROW_KERNELS),
           f"a kernel was not launched on the relight path: {launches}")
     check(marched["pairs"] == 10 * pairs_per_step,
           f"secondary marched {marched['pairs']} pairs in 10 steps, not "
@@ -1552,7 +1585,7 @@ def phase_bench_train(streams):
         fails.append(f"non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fails.append(f"bench loss did not fall: {losses}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched on the bench path: "
                      f"{launches}")
     if marched != {"pairs": 10 * cap, "tiles": 10 * cap // st[
@@ -1915,7 +1948,8 @@ def phase_train_run(keep_dir: str):
     if differ:
         fails.append(f"the reloaded checkpoint differs: {differ}")
     if not all(v > 0 for v in launches.values()):
-        fails.append(f"a kernel was not launched in the run: {launches}")
+        fails.append(f"a kernel was not launched in the run (the line "
+                     f"taps at the alpha masks): {launches}")
     # every event the schedule calls for, at its iteration: a probe that
     # stops seeing the loop fails here. Rebuilds: the first step (before
     # iteration 0), the shrink, and each upsample
@@ -1969,10 +2003,13 @@ def eval_knobs(cfg) -> dict:
 def _eval_probe(log: list):
     """Record each eval chunk the block renders: which chunk function
     (``main``, or ``gbuf`` for the rescale ratio's G-buffer chunks), its
-    time (CUDA events), its K1/K2 launches and its secondary tiles. Wraps
-    ``render.eval.make_eval_chunk_fn``, which ``evaluation_iter`` calls."""
+    time (CUDA events), its K1/K2 launches, its secondary tiles and its
+    line lookups by route (``LINE_ROUTE``: a tile graph's lookups count at
+    its capture). Wraps ``render.eval.make_eval_chunk_fn``, which
+    ``evaluation_iter`` calls."""
     import torch
     from tensoir_tpu_torch.kernels import LAUNCHES
+    from tensoir_tpu_torch.ops.interp import LINE_ROUTE
     from tensoir_tpu_torch.render import eval as E
     from tensoir_tpu_torch.render import secondary
     make = E.make_eval_chunk_fn
@@ -1983,6 +2020,7 @@ def _eval_probe(log: list):
 
         def run(params, scene, rays, light_idx):
             before = dict(LAUNCHES)
+            routes = dict(LINE_ROUTE)
             tiles = secondary.MARCHED["tiles"]
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
@@ -1992,7 +2030,9 @@ def _eval_probe(log: list):
             log.append({"kind": kind, "events": (t0, t1),
                         "tiles": secondary.MARCHED["tiles"] - tiles,
                         "launches": {k: LAUNCHES[k] - before[k]
-                                     for k in LAUNCHES}})
+                                     for k in LAUNCHES},
+                        "line_route": {k: LINE_ROUTE[k] - routes[k]
+                                       for k in LINE_ROUTE}})
             return out
         return run, chunk
 
@@ -2005,7 +2045,8 @@ def _eval_probe(log: list):
 
 def _chunk_stats(chunks) -> dict:
     """Per kind of chunk (eval ``main``, G-buffer ``gbuf``, ``relight``):
-    count, median and total ms, secondary tiles and launches per chunk."""
+    count, median and total ms, secondary tiles and launches per chunk, and
+    the distinct counts of line lookups by route a chunk made."""
     out = {}
     for kind in ("main", "gbuf", "relight"):
         mine = [c for c in chunks if c["kind"] == kind]
@@ -2018,7 +2059,10 @@ def _chunk_stats(chunks) -> dict:
             "tiles_per_chunk": sorted({c["tiles"] for c in mine}),
             "launches_per_chunk": {
                 k: sum(c["launches"][k] for c in mine) / len(mine)
-                for k in mine[0]["launches"]}}
+                for k in mine[0]["launches"]},
+            "line_route_per_chunk": {
+                k: sorted({c["line_route"][k] for c in mine})
+                for k in mine[0]["line_route"]}}
     return out
 
 
@@ -2126,6 +2170,8 @@ def phase_eval(trained):
                      f"{want_tiles}")
     if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
         fails.append(f"K1 not launched in the eval: {launches}")
+    if not launches["line_taps"] > 0:
+        fails.append(f"the line taps not launched in the eval: {launches}")
     if launches["row_scatter_add"] != 0:
         fails.append(f"K2 launched {launches['row_scatter_add']} times in "
                      f"the eval")
@@ -2373,11 +2419,13 @@ def _relight_probe(log: list, timing: dict):
     events, K1/K2 launches, visibility tiles, the (point, light sample)
     pairs offered and kept of ``RP.VIS_PACK``), the wall seconds of each
     relight_benchmark and of the G-buffer pass of the albedo rescale
-    (``timing``). Wraps ``render.relight_pipeline.make_relight_chunk_fn``
-    and ``relight_benchmark`` and ``render.eval.compute_rescale_ratio``,
-    which the relight script looks up when it runs."""
+    (``timing``), and its line lookups by route (``LINE_ROUTE``). Wraps
+    ``render.relight_pipeline.make_relight_chunk_fn`` and
+    ``relight_benchmark`` and ``render.eval.compute_rescale_ratio``, which
+    the relight script looks up when it runs."""
     import torch
     from tensoir_tpu_torch.kernels import LAUNCHES
+    from tensoir_tpu_torch.ops.interp import LINE_ROUTE
     from tensoir_tpu_torch.render import eval as E
     from tensoir_tpu_torch.render import relight_pipeline as RP
     from tensoir_tpu_torch.render import secondary
@@ -2389,6 +2437,7 @@ def _relight_probe(log: list, timing: dict):
 
         def run(*args, **kws):
             before = dict(LAUNCHES)
+            routes = dict(LINE_ROUTE)
             tiles = secondary.MARCHED["tiles"]
             pack = dict(RP.VIS_PACK)
             t0 = torch.cuda.Event(enable_timing=True)
@@ -2400,7 +2449,9 @@ def _relight_probe(log: list, timing: dict):
                         "tiles": secondary.MARCHED["tiles"] - tiles,
                         **{k: RP.VIS_PACK[k] - pack[k] for k in pack},
                         "launches": {k: LAUNCHES[k] - before[k]
-                                     for k in LAUNCHES}})
+                                     for k in LAUNCHES},
+                        "line_route": {k: LINE_ROUTE[k] - routes[k]
+                                       for k in LINE_ROUTE}})
             return out
         return run
 
@@ -2537,6 +2588,9 @@ def phase_relight(work: str, ckpt: str, trained):
                      f"{per_light * len(RELIGHT_LIGHTS) * RELIGHT_VIEWS}")
     if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
         fails.append(f"K1 not launched in the relight run: {launches}")
+    if not launches["line_taps"] > 0:
+        fails.append(f"the line taps not launched in the relight run: "
+                     f"{launches}")
     if launches["row_scatter_add"] != 0:
         fails.append(f"K2 launched {launches['row_scatter_add']} times in "
                      f"the relight run")
@@ -2589,7 +2643,7 @@ def phase_relight(work: str, ckpt: str, trained):
                                   for k, v in results.items()
                                   if k in results_f}}
     if launches_f["row_scatter_add"] != 0 or not (
-            launches_f["row_gather_bf16"] > 0):
+            launches_f["row_gather_bf16"] > 0 and launches_f["line_taps"] > 0):
         fails.append(f"launches {launches_f}")
     if not all(math.isfinite(r["psnr"]) for r in results_f.values()):
         fails.append(f"metrics {results_f}")
@@ -2736,7 +2790,7 @@ def phase_multilight_cli():
     does; in the rotated setting the CLI evaluates light 0 and lights 1 and
     2 are evaluated here from ckpt_final with the CLI's eval settings).
     Launch counts from 0 before each run to the end of its evals; every
-    kernel must launch, every event happen at its iteration, every PSNR be
+    row kernel must launch, every event happen at its iteration, every PSNR be
     finite. Returns (launch counts per path, launches by shape)."""
     import torch
     from tensoir_tpu_torch import train_tensoir
@@ -2810,7 +2864,7 @@ def phase_multilight_cli():
         if sorted(psnr) != [0, 1, 2] or not all(
                 math.isfinite(x) for v in psnr.values() for x in v):
             mine.append(f"PSNR per light {psnr}")
-        if not all(v > 0 for v in launches[path].values()):
+        if not all(launches[path][k] > 0 for k in ROW_KERNELS):
             mine.append(f"a kernel was not launched: {launches[path]}")
         for name, its in (("update_alpha_mask", [MULTI_RADIANCE]),
                           ("shrink", [MULTI_RADIANCE]),
@@ -3093,7 +3147,7 @@ def phase_variants_train():
                "launches_by_shape": by_shape(counts, VARIANT_TRAIN_STEPS),
                "peak_mem_gb": peak}
         want = (("row_gather_bf16",) if fcfg.decomp == "cp"
-                else tuple(mine_launches))
+                else ROW_KERNELS)
         mine = []
         if not all(math.isfinite(x) for x in losses):
             mine.append(f"non-finite loss {losses}")
@@ -3121,7 +3175,7 @@ def phase_variants_cli():
     final render_test of the 200 x 200 view; then render-only from
     ckpt_final, whose metrics must equal the run's bit for bit. Launch
     counts from 0 before each run to the end of its render-only run; CP
-    must launch K1-bf16, TensorVM every kernel. Returns (launch counts per
+    must launch K1-bf16, TensorVM every row kernel. Returns (launch counts per
     path, launches by shape)."""
     import torch
     from tensoir_tpu_torch import train_tensoir
@@ -3199,7 +3253,7 @@ def phase_variants_cli():
                 if got != its:
                     mine.append(f"{name} at {got}, not {its}")
             want = (("row_gather_bf16",) if decomp == "cp"
-                    else tuple(launches[path]))
+                    else ROW_KERNELS)
             if not all(launches[path][k] > 0 for k in want):
                 mine.append(f"a kernel of the path was not launched: "
                             f"{launches[path]}")
@@ -3436,8 +3490,8 @@ def phase_grouped_cli():
     whose metrics must equal the run's bit for bit. Then a second short run
     at ``--downsample_train 2`` over the same 800 x 800 PNGs, which the
     loader resizes to 400 x 400 on load (Lanczos, as PIL). Launch counts
-    from 0 before the first run to the end of the second; every kernel must
-    launch. Returns (launch counts, launches by shape)."""
+    from 0 before the first run to the end of the second; every row kernel
+    must launch. Returns (launch counts, launches by shape)."""
     import io
     import torch
     from tensoir_tpu_torch import train_tensoir
@@ -3542,7 +3596,7 @@ def phase_grouped_cli():
     if tuple(small.img_wh) != (400, 400) or not np.isfinite(
             small.all_rgbs).all():
         fails.append(f"downsample 2 loaded {small.img_wh}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched: {launches}")
     res["ok"] = not fails
     emit(res)
@@ -3578,8 +3632,9 @@ def grouped_kernel_cases() -> dict:
 def phase_mesh_export(ckpt: str):
     """``python -m tensoir_tpu_torch.scripts.export_mesh`` on train_run's
     ckpt_final, in this process: the dense alpha at the field's own grid
-    on the card (K1 launches counted from 0 just before; 3 K1-f32 and one
-    K1-bf16 per chunk of x-slabs, K2 none), the host extraction, the PLY.
+    on the card (launches counted from 0 just before; 3 K1-f32, one
+    K1-bf16 and 3 line-taps per chunk of x-slabs, K2 none), the host
+    extraction, the PLY.
     Reports each part's seconds, the mesh's size and the share of its edges
     shared by exactly two faces (must exceed 0.99), and holds the card's
     alpha on the middle x-slab against the CPU's (1e-5 absolute: the same
@@ -3635,7 +3690,7 @@ def phase_mesh_export(ckpt: str):
     _, counts = np.unique(edges, axis=0, return_counts=True)
     two = float((counts == 2).mean())
     want = {"row_gather": 3 * chunks, "row_gather_bf16": chunks,
-            "row_scatter_add": 0}
+            "row_scatter_add": 0, "line_taps": 3 * chunks}
     res = {"phase": "mesh_export", "grid": [gx, gy, gz], "chunks": chunks,
            "seconds": total_s, "dense_alpha_s": timing["dense_alpha"],
            "extract_s": timing["extract"], "vertices": len(verts),
@@ -3862,7 +3917,7 @@ def phase_dp_nccl(work: str):
         over = {k: v for k, v in g_rel.items() if v > 1e-3}
         if over:
             fails.append(f"gradients over 1e-3: {over}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched: {launches}")
     # two NCCL ranks on one card: NCCL refuses them; what it says
     pair_s, pair_failed, pair_logs = _spawn_ranks(
@@ -3969,7 +4024,7 @@ def phase_dp_gloo2(work: str):
     one rank than on one process. Held: the first step's loss within 1e-5
     relative, every gradient within 1e-3 relative L2 (the relight step
     parity's bounds), both ranks' parameters bit-equal after 2 steps, and
-    every kernel launched. Then once more at the config's own cap (1024 a
+    every row kernel launched. Then once more at the config's own cap (1024 a
     rank, 1024 on one process): how far per-rank capping moves the loss,
     reported, not held. Reported: the gloo all_reduce's ms (CUDA tensors
     through the host), peak memory per rank, K1/K2 launches per rank-step.
@@ -4033,7 +4088,7 @@ def phase_dp_gloo2(work: str):
         fails.append(f"backends {m0['backend']}, {m1['backend']}")
     launches = {k: sum(c["launches"][k] for c in m0["cases"])
                 for k in m0["cases"][0]["launches"]}
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched: {launches}")
     cap_ref = one[cfg.relight_ray_cap]
     emit({"phase": "dp_gloo2", "ok": not fails, "fails": fails,
@@ -4091,7 +4146,7 @@ def phase_dp_run(work: str):
     callback makes its <log_dir>/STOP at iteration DP_RUN["stop"]. Held:
     only rank 0's log_dir exists (with the checkpoints, the metrics and
     the config), both ranks end with bit-equal parameters, both stop at
-    that iteration, every kernel launched. Reported: wall s of each rank,
+    that iteration, every row kernel launched. Reported: wall s of each rank,
     launches per rank-iteration. Returns (rank 0's launch counts, its
     launches by shape)."""
     t_phase = time.perf_counter()
@@ -4122,7 +4177,7 @@ def phase_dp_run(work: str):
     if stops != [DP_RUN["stop"]] * 2:
         fails.append(f"the ranks stopped at {stops}")
     launches = res[0]["launches"]
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched: {launches}")
     n_it = DP_RUN["stop"] + 1
     emit({"phase": "dp_run", "ok": not fails, "fails": fails,
@@ -4226,7 +4281,7 @@ def phase_dp_launch(work: str, nproc: int):
        run directory holds both checkpoints, the config, one metrics line
        per iteration, and the eval's one record and images; ckpt_final was
        written at the stop, after the save, with each rank's generator and
-       sampler states; every kernel launched on rank 0. Reported: wall s,
+       sampler states; every row kernel launched on rank 0. Reported: wall s,
        median ms per radiance and per relight iteration (from rank 0's
        elapsed_s), the eval's s.
     Returns (rank 0's launch counts, its launches by shape)."""
@@ -4331,7 +4386,7 @@ def phase_dp_launch(work: str, nproc: int):
     if [x["result"] for x in res] != [{}] * nproc:
         fails.append(f"results {[x['result'] for x in res]}")
     launches = res[0]["launches"]
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ROW_KERNELS):
         fails.append(f"a kernel was not launched: {launches}")
     elapsed = {x["step"]: x["train/elapsed_s"] for x in recs}
 
@@ -4472,6 +4527,70 @@ def eval_lookup_cases(shapes) -> dict:
                                       chunk * 64, seed=71)}
 
 
+# the main path's line lookups without a gradient, as (lines k, nodes D,
+# width R, rows N, CP's extrapolating taps): CP's appearance lines in a
+# secondary tile's app stage, VM's appearance line in the same, and the
+# density line of a visibility tile (16,384 pairs x 48 samples)
+LINE_TAP_SHAPES = {"cp_app": (3, 500, 288, 65536, True),
+                   "vm_app": (1, 300, 48, 65536, False),
+                   "vis_density": (1, 300, 16, 786432, False)}
+
+
+def line_taps_case(k: int, D: int, R: int, N: int, extrapolate: bool,
+                   seed: int) -> dict:
+    """The line-taps kernel at one shape on random lines and coordinates in
+    [-1.1, 1.1]: its gap to the plain version (largest absolute, and in
+    ulps of the taps' scale prod_a |w0 l0| + |w1 l1|) and to the matrix
+    route, and the share of outputs equal to each; kernel, eager, plain and
+    matrix-route ms; the bound (output written and coordinates read at the
+    HBM rate). Its shape in the row kernels' terms: each line a table of R
+    rows (its D nodes) and C columns (its width), N lookups."""
+    import torch
+    from tensoir_tpu_torch.ops import interp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lines = tuple(torch.randn((D, R), device=dev, generator=gen)
+                  for _ in range(k))
+    coords = torch.rand((N, 3), device=dev, generator=gen) * 2.2 - 1.1
+    axes = (2, 1, 0)[:k]
+    got = interp.line_taps(lines, coords, axes, extrapolate)
+    plain = interp.line_taps_plain(lines, coords, axes, extrapolate)
+    matrix = interp.line_matrix_product(lines, coords, axes, extrapolate)
+    scale = None
+    for line, axis in zip(lines, axes):
+        i0, i1, w0, w1 = interp._taps(line, coords[..., axis], extrapolate)
+        s = ((w0[..., None] * line[i0]).abs()
+             + (w1[..., None] * line[i1]).abs())
+        scale = s if scale is None else scale * s
+    unit = (F32_EPS * scale.double()).clamp_min(1e-300)
+
+    def ulps(want):
+        return float(((got.double() - want.double()).abs() / unit).max())
+
+    gaps = {"max_abs_err": float((got - plain).abs().max()),
+            "ulps_vs_plain": ulps(plain), "ulps_vs_matrix": ulps(matrix),
+            "equal_to_plain": float((got == plain).double().mean()),
+            "equal_to_matrix": float((got == matrix).double().mean())}
+    check(gaps["ulps_vs_plain"] <= 1.0
+          and gaps["ulps_vs_matrix"] <= 2 * k - 1,
+          f"line_taps k={k} D={D} R={R} N={N}: {gaps}")
+    del plain, matrix, scale, unit
+    run = (lambda: interp.line_taps(lines, coords, axes, extrapolate))
+    return {"k": k, "R": D, "C": R, "N": N, "extrapolate": extrapolate,
+            **gaps, "ms": graph_ms(run), "eager_ms": time_ms(run),
+            "plain_ms": time_ms(lambda: interp.line_taps_plain(
+                lines, coords, axes, extrapolate)),
+            "library_ms": graph_ms(lambda: interp.line_matrix_product(
+                lines, coords, axes, extrapolate)),
+            "bound_ms": (4 * N * R + 12 * N) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def line_taps_cases() -> dict:
+    return {name: line_taps_case(*shape, seed=120 + i)
+            for i, (name, shape) in enumerate(LINE_TAP_SHAPES.items())}
+
+
 def busiest_cases(shapes, seed: int) -> dict:
     """Each kernel at the shape of one path (a whole run, or the eval)
     that moved the most bytes (launches x N x C), on random indices,
@@ -4504,50 +4623,68 @@ def busiest_cases(shapes, seed: int) -> dict:
 
 
 # each path's own shape for each kernel: the lookup that moves the most
-# bytes per launch on that path
+# bytes per launch on that path. The line-taps kernel's is one of its
+# main-path cases (LINE_TAP_SHAPES): VM's appearance line of a secondary
+# tile, the visibility march's density line where a path marches it (the
+# relight script, the mesh export's dense alpha at the same width) and
+# CP's three appearance lines on CP's paths; None where no lookup of the
+# path is without a gradient (the radiance step)
+_VM_TAPS = ("line_taps", "vm_app")
+
+
+def _own(path: str, taps=_VM_TAPS) -> dict:
+    """Each row kernel at the path's busiest shape (busiest_cases), the
+    line taps at ``taps``."""
+    return {**{name: (path, name) for name in ROW_KERNELS},
+            "line_taps": taps}
+
+
 PATH_CASES = {
     "train": {"row_gather": ("slice_density", "row_gather"),
               "row_gather_bf16": ("bf16", "train_alpha_mask"),
-              "row_scatter_add": ("slice_density", "row_scatter_add")},
+              "row_scatter_add": ("slice_density", "row_scatter_add"),
+              "line_taps": None},
     "relight_train": {"row_gather": ("relight_density", "row_gather"),
                       "row_gather_bf16": ("bf16", "baked_grid"),
                       "row_scatter_add": ("relight_density",
-                                          "row_scatter_add")},
+                                          "row_scatter_add"),
+                      "line_taps": _VM_TAPS},
     "bench_train": {"row_gather": ("bench_density", "row_gather"),
                     "row_gather_bf16": ("bf16", "bench_app_bake"),
-                    "row_scatter_add": ("bench_density", "row_scatter_add")},
+                    "row_scatter_add": ("bench_density", "row_scatter_add"),
+                    "line_taps": _VM_TAPS},
     # the busiest shape of each kernel in the training run, the eval (K2
     # does not launch there: None, its entry holds its launches and no
     # times) and the CLI run (busiest_cases)
-    "train_run": {name: ("train_run", name) for name in KERNEL_SOURCES},
+    "train_run": _own("train_run"),
     "eval": {"row_gather": ("eval", "row_gather"),
              "row_gather_bf16": ("eval", "row_gather_bf16"),
-             "row_scatter_add": None},
-    "cli_run": {name: ("cli_run", name) for name in KERNEL_SOURCES},
+             "row_scatter_add": None, "line_taps": _VM_TAPS},
+    "cli_run": _own("cli_run"),
     # the relight script, exact (the default) and fast visibility: K2 does
     # not launch there either
     "relight": {"row_gather": ("relight", "row_gather"),
                 "row_gather_bf16": ("relight", "row_gather_bf16"),
-                "row_scatter_add": None},
+                "row_scatter_add": None,
+                "line_taps": ("line_taps", "vis_density")},
     "relight_fast": {"row_gather": ("relight_fast", "row_gather"),
                      "row_gather_bf16": ("relight_fast", "row_gather_bf16"),
-                     "row_scatter_add": None},
+                     "row_scatter_add": None, "line_taps": _VM_TAPS},
     # the mesh export's dense alpha (no gradient: K2 does not launch), and
     # the CLI on each multi-light config
     "mesh_export": {"row_gather": ("mesh_export", "row_gather"),
                     "row_gather_bf16": ("mesh_export", "row_gather_bf16"),
-                    "row_scatter_add": None},
-    "multilight_rotated": {name: ("multilight_rotated", name)
-                           for name in KERNEL_SOURCES},
-    "multilight_general": {name: ("multilight_general", name)
-                           for name in KERNEL_SOURCES},
+                    "row_scatter_add": None,
+                    "line_taps": ("line_taps", "vis_density")},
+    "multilight_rotated": _own("multilight_rotated"),
+    "multilight_general": _own("multilight_general"),
     # data-parallel: the grouped relight step on one NCCL rank, rank 0 of
     # the two gloo ranks' steps, rank 0 of the two-rank training run
-    "dp_nccl": {name: ("dp_nccl", name) for name in KERNEL_SOURCES},
-    "dp_gloo2": {name: ("dp_gloo2", name) for name in KERNEL_SOURCES},
-    "dp_run": {name: ("dp_run", name) for name in KERNEL_SOURCES},
+    "dp_nccl": _own("dp_nccl"),
+    "dp_gloo2": _own("dp_gloo2"),
+    "dp_run": _own("dp_run"),
     # rank 0 of the CLI under the launcher, one NCCL rank
-    "dp_launch": {name: ("dp_launch", name) for name in KERNEL_SOURCES},
+    "dp_launch": _own("dp_launch"),
     # the model variants: TensorCP has no plane gather (K1-f32 and K2 do
     # not launch: only its baked sigma grid and alpha mask, on K1-bf16);
     # the stacked TensorVM's sliced planes and the VM importance and bf16
@@ -4555,8 +4692,9 @@ PATH_CASES = {
     **{f"variants_{kind}_cp": {
         "row_gather": None,
         "row_gather_bf16": (f"variants_{kind}_cp", "row_gather_bf16"),
-        "row_scatter_add": None} for kind in ("train", "cli")},
-    **{path: {name: (path, name) for name in KERNEL_SOURCES}
+        "row_scatter_add": None,
+        "line_taps": ("line_taps", "cp_app")} for kind in ("train", "cli")},
+    **{path: _own(path)
        for path in ("variants_train_vm_stacked", "variants_train_vm",
                     "variants_cli_vm_stacked")},
     # the grouped knobs: bench.py's steps at their new rows (the 16-corner
@@ -4565,8 +4703,9 @@ PATH_CASES = {
     "grouped_train": {
         "row_gather": ("grouped_block16_g4", "row_gather"),
         "row_gather_bf16": ("grouped_pair", "pair_b64_g4"),
-        "row_scatter_add": ("grouped_block16_g4", "row_scatter_add")},
-    "grouped_cli": {name: ("grouped_cli", name) for name in KERNEL_SOURCES},
+        "row_scatter_add": ("grouped_block16_g4", "row_scatter_add"),
+        "line_taps": _VM_TAPS},
+    "grouped_cli": _own("grouped_cli"),
 }
 VARIANT_PATHS = ("variants_train_cp", "variants_train_vm_stacked",
                  "variants_train_vm", "variants_cli_cp",
@@ -4575,11 +4714,12 @@ NEW_PATHS = ("mesh_export", "multilight_rotated", "multilight_general",
              "dp_nccl", "dp_gloo2", "dp_run", "dp_launch", *VARIANT_PATHS,
              "grouped_cli")
 # the path whose numbers lead each kernel's summary entry: the CLI run
-# (training, the evals, render-only), the one path that runs all three
-# kernels (K2 does not launch on the relight path)
+# (training, the evals, render-only), the one path that runs every kernel
+# (K2 does not launch on the relight path, the line taps not in the
+# radiance step)
 MAIN_PATH = "cli_run"
 _OWN_SHAPE_GROUPS = ("bf16", "train_run", "eval", "cli_run", "relight",
-                     "relight_fast", "grouped_pair", *NEW_PATHS)
+                     "relight_fast", "grouped_pair", "line_taps", *NEW_PATHS)
 
 
 def kernel_summary(cases, launches, shapes, chunks) -> list:
@@ -4624,11 +4764,12 @@ def main(argv) -> int:
     launch_only = argv == ["--dp-launch"]
     variants_only = argv == ["--variants"]
     grouped_only = argv == ["--grouped"]
+    taps_only = argv == ["--line-taps"]
     child = len(argv) == 3 and argv[0] == "--dp-child"
     if argv and not (steps_only or launch_only or variants_only
-                     or grouped_only or child):
+                     or grouped_only or taps_only or child):
         print("usage: python3 chip_smoke.py [--steps | --dp-launch | "
-              "--variants | --grouped]", file=sys.stderr)
+              "--variants | --grouped | --line-taps]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -4658,6 +4799,8 @@ def main(argv) -> int:
             return _run_variants(t_start)
         if grouped_only:
             return _run_grouped(t_start)
+        if taps_only:
+            return _run_line_taps(t_start)
         return _run(steps_only, work, t_start, streams, launches, shapes)
 
 
@@ -4686,6 +4829,20 @@ def _run_grouped(t_start: float) -> int:
         emit({"phase": "grouped_kernels", "ok": True,
               "block16": {f"g{g}": c for g, c in block.items()},
               "pair": pair})
+    except SmokeFailure as exc:
+        emit({"ok": False, "failure": str(exc)})
+        return 1
+    print(f"# total seconds {time.perf_counter() - t_start:.1f}",
+          file=sys.stderr)
+    return 0
+
+
+def _run_line_taps(t_start: float) -> int:
+    """--line-taps: the build and the line-taps kernel's cases only; it
+    ends after them without the summary or the last line."""
+    try:
+        phase_build()
+        emit({"phase": "line_taps", "ok": True, "cases": line_taps_cases()})
     except SmokeFailure as exc:
         emit({"ok": False, "failure": str(exc)})
         return 1

@@ -24,7 +24,7 @@ from typing import Any, Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-CUDA_SOURCES = ("row_gather", "row_scatter_add")
+CUDA_SOURCES = ("row_gather", "row_scatter_add", "line_taps")
 HOST_SOURCES = ("mesh_extract",)
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +42,13 @@ _SIGNATURES = {
     "row_scatter_add_f32": ("row_scatter_add",
                             [_c_void_p, _c_int, _c_void_p, _c_void_p,
                              _c_int64, _c_int64, _c_int64, _c_void_p]),
+    # int line_taps_f32(line0, line1, line2, ld0, ld1, ld2, d0, d1, d2,
+    #                   axis0, axis1, axis2, k, extrapolate, coords, out,
+    #                   n, r, stream)
+    "line_taps_f32": ("line_taps",
+                      [_c_void_p] * 3 + [_c_int64] * 6 + [_c_int] * 5
+                      + [_c_void_p, _c_void_p, _c_int64, _c_int64,
+                         _c_void_p]),
     # int mesh_extract(grid, nx, ny, nz, level, origin, spacing,
     #                  &verts, &n_verts, &faces, &n_faces)
     "mesh_extract": ("mesh_extract",
@@ -114,12 +121,16 @@ def build(force: bool = False, names=SOURCES) -> Dict[str, dict]:
 
 def kernel(symbol: str):
     """The ctypes function ``symbol`` of one library, building the
-    library (alone) if it is missing or older than its source."""
+    library if it is missing or older than its source. A stale CUDA
+    library is built together with every other stale CUDA library, in
+    parallel: a process that needs one kernel soon needs the others, and
+    one build at a time would add each compiler's seconds to its set-up."""
     fn = _loaded.get(symbol)
     if fn is None:
         name, argtypes = _SIGNATURES[symbol]
         if _stale(name):
-            build(names=(name,))
+            build(names=tuple(n for n in CUDA_SOURCES if _stale(n))
+                  if name in CUDA_SOURCES else (name,))
         fn = getattr(ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so")), symbol)
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(symbol, ctypes.c_int)

@@ -20,8 +20,11 @@ import torch
 
 from tensoir_tpu_torch.kernels import build
 
-# K1 on f32 rows, K1 on 2-byte (bf16) rows, K2
-LAUNCHES = {"row_gather": 0, "row_gather_bf16": 0, "row_scatter_add": 0}
+# K1 on f32 rows, K1 on 2-byte (bf16) rows, K2, and the line-taps kernel
+# (``ops.interp.line_taps``); a kernel captured in a tile graph counts at
+# each replay of the graph (``render/secondary.py``), not at its capture
+LAUNCHES = {"row_gather": 0, "row_gather_bf16": 0, "row_scatter_add": 0,
+            "line_taps": 0}
 _GATHER_SYMBOL = {torch.float32: ("row_gather_f32", "row_gather"),
                   torch.bfloat16: ("row_gather_b16", "row_gather_bf16")}
 

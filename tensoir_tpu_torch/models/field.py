@@ -17,7 +17,9 @@ pytrees (also ``light_line``, ``basis_mat``, MLP dicts, ``lgt_sgs``), so a
 JAX-initialized field carries over with ``weights.params_from_numpy``.
 Every plane lookup goes through the corner-packed row gather K1 on f32
 rows (a stacked slice is packed into a contiguous table first); line
-lookups are products with a two-tap matrix; the corner-packed trilinear
+lookups are products with a two-tap matrix wherever a gradient can flow
+through them, and two taps read by the line-taps kernel elsewhere
+(``ops.interp.line_product``); the corner-packed trilinear
 lookups (alpha mask, baked sigma grid, baked appearance grid) go through
 K1 on bf16 rows. The grouped lookups read one row per group of nearby
 points: a 16-corner f32 block row of a plane (primary march) or a
@@ -41,7 +43,7 @@ from tensoir_tpu_torch.models import lighting, mlps
 from tensoir_tpu_torch.models.mlps import dot
 from tensoir_tpu_torch.ops.interp import (bilerp_plane_group_packed,
                                           bilerp_plane_packed,
-                                          lerp_line_matmul,
+                                          line_product,
                                           resize_bilinear_align_corners,
                                           resize_line_align_corners,
                                           trilerp_volume)
@@ -241,14 +243,10 @@ def app_factors(cfg: FieldConfig, params: Dict, i: int):
 def _cp_product(params: Dict, name: str, coords) -> torch.Tensor:
     """CP's feature [..., R]: the product of the three line lookups, each
     with the taps of the JAX package's gathering ``lerp_line`` (its value
-    and gradients, the linear extension below the first node included) in
-    the product form."""
-    return (lerp_line_matmul(params[f"{name}_line_0"],
-                             coords[..., VEC_MODE[0]], extrapolate=True)
-            * lerp_line_matmul(params[f"{name}_line_1"],
-                               coords[..., VEC_MODE[1]], extrapolate=True)
-            * lerp_line_matmul(params[f"{name}_line_2"],
-                               coords[..., VEC_MODE[2]], extrapolate=True))
+    and gradients, the linear extension below the first node included),
+    in the product form wherever a gradient can flow (``line_product``)."""
+    return line_product(tuple(params[f"{name}_line_{i}"] for i in range(3)),
+                        coords, VEC_MODE, extrapolate=True)
 
 
 def density_feature(cfg: FieldConfig, params: Dict, coords):
@@ -262,7 +260,7 @@ def density_feature(cfg: FieldConfig, params: Dict, coords):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             plane, line = density_factors(cfg, params, i)
-            lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
+            lf = line_product((line,), coords, (VEC_MODE[i],))
             pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
             total = total + (pf * lf).sum(-1)
         return total
@@ -281,7 +279,7 @@ def density_feature_grouped(cfg: FieldConfig, params: Dict, coords_g):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             plane, line = density_factors(cfg, params, i)
-            lf = lerp_line_matmul(line, coords_g[..., VEC_MODE[i]])
+            lf = line_product((line,), coords_g, (VEC_MODE[i],))
             pf = bilerp_plane_group_packed(plane, coords_g[..., m0],
                                            coords_g[..., m1])
             total = total + (pf * lf).sum(-1)
@@ -298,7 +296,7 @@ def _app_raw_feature(cfg: FieldConfig, params: Dict, coords):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             plane, line = app_factors(cfg, params, i)
-            lf = lerp_line_matmul(line, coords[..., VEC_MODE[i]])
+            lf = line_product((line,), coords, (VEC_MODE[i],))
             pf = bilerp_plane_packed(plane, coords[..., m0], coords[..., m1])
             feats.append(pf * lf)
         return torch.cat(feats, -1)

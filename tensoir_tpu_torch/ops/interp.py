@@ -6,7 +6,10 @@ volumes ``[D, H, W(, C)]``, coordinates normalized to [-1, 1] with
 convention and zero padding, for the lat-long environment maps). The
 corner-packed plane lookup gathers its rows through K1
 (``kernels.gather_rows``), whose backward is K2; so does the grouped
-lookup, one 16-corner block row per group of nearby points.
+lookup, one 16-corner block row per group of nearby points. A line lookup
+(``line_product``) is a product with a two-tap matrix wherever a gradient
+can flow through it, and otherwise reads its two taps through the
+line-taps kernel (``csrc/line_taps.cu``).
 
 ``clip`` splits the gradient evenly at a tie with a bound, as ``jnp.clip``
 does (``torch.clamp`` passes all of it), so coordinate gradients at the
@@ -19,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tensoir_tpu_torch.kernels import gather_rows
+from tensoir_tpu_torch.kernels import LAUNCHES, build, gather_rows
 from tensoir_tpu_torch.ops.rays import linspace
 from tensoir_tpu_torch.profiling import span
 
@@ -159,6 +162,144 @@ def lerp_line_matmul(line: torch.Tensor, z: torch.Tensor,
         i0 = iz0.long()[..., None]
         M.scatter_(-1, i0, 1.0 - w1).scatter_(-1, i0 + 1, w1)
         return torch.matmul(M, line)
+
+
+# line lookups by route, counted by ``line_product`` on every device (a
+# lookup of CP's three lines counts three); a tile graph's replays run no
+# Python, so its lookups count once, at its capture. The kernel's launches
+# are ``kernels.LAUNCHES["line_taps"]``.
+LINE_ROUTE = {"taps": 0, "matrix": 0}
+
+
+def reset_line_route_counts() -> None:
+    for k in LINE_ROUTE:
+        LINE_ROUTE[k] = 0
+
+
+def _taps(line: torch.Tensor, z: torch.Tensor, extrapolate: bool):
+    """(i0, i1, w0, w1) of ``lerp_line_matmul``'s two taps at z [...]: the
+    same clipping and weights; where CP's taps fall on one node (i0 ==
+    i1) the one weight is fl(fl(1 - w1) + w1), as its ``scatter_add_``
+    writes it, and w1 is 0."""
+    D = line.shape[0]
+    iz = _unnormalize(z, D, True)
+    if extrapolate:
+        iz0 = torch.floor(iz).clamp(0, D - 1)
+        w1 = iz - iz0
+        i0 = iz0.long()
+        i1 = (i0 + 1).clamp(max=D - 1)
+        w0 = 1.0 - w1
+        one = i0 == i1
+        return (i0, i1, torch.where(one, w0 + w1, w0),
+                torch.where(one, torch.zeros_like(w1), w1))
+    iz0 = torch.floor(iz).clamp(0, D - 2)
+    w1 = clip(iz - iz0, 0.0, 1.0)
+    i0 = iz0.long()
+    return i0, i0 + 1, 1.0 - w1, w1
+
+
+def line_taps_plain(lines, coords: torch.Tensor, axes,
+                    extrapolate: bool = False) -> torch.Tensor:
+    """Plain version of the line-taps kernel: per line two row gathers and
+    fma(w1, l1, fl(w0 * l0)), the two-tap matrix's GEMM row in ascending
+    node order (the fma exact in float64, then rounded once), and the
+    lines' lookups multiplied left to right."""
+    out = None
+    for line, axis in zip(lines, axes):
+        i0, i1, w0, w1 = _taps(line, coords[..., axis], extrapolate)
+        l0, l1 = line[i0], line[i1]
+        v = (w1[..., None].double() * l1.double()
+             + (w0[..., None] * l0).double()).float()
+        out = v if out is None else out * v
+    return out
+
+
+def _check_taps(lines, coords: torch.Tensor, axes) -> None:
+    if len(lines) not in (1, 3) or len(axes) != len(lines):
+        raise ValueError(f"line taps look up 1 or 3 lines, one axis each; "
+                         f"got {len(lines)} lines, axes {tuple(axes)}")
+    r = lines[0].shape[-1]
+    for line, axis in zip(lines, axes):
+        if (line.dim() != 2 or line.dtype != torch.float32
+                or line.shape[1] != r or line.shape[0] < 2
+                or line.stride(1) != 1):
+            raise ValueError(f"each line must be a float32 [D >= 2, {r}] "
+                             f"table with unit column stride, got "
+                             f"{line.dtype} {tuple(line.shape)} strides "
+                             f"{line.stride()}")
+        if axis not in (0, 1, 2):
+            raise ValueError(f"axis {axis} is not a coordinate column")
+        if line.device != coords.device:
+            raise ValueError(f"tensors on different devices: {line.device} "
+                             f"vs {coords.device}")
+    if coords.dtype != torch.float32 or coords.shape[-1:] != (3,):
+        raise ValueError(f"coords must be float32 [..., 3], got "
+                         f"{coords.dtype} {tuple(coords.shape)}")
+
+
+def line_taps(lines, coords: torch.Tensor, axes,
+              extrapolate: bool = False) -> torch.Tensor:
+    """prod_a lerp(lines[a], coords[..., axes[a]]) -> [..., R] for one (VM)
+    or three (CP) float32 line tables [D, R], with ``lerp_line_matmul``'s
+    taps (``extrapolate`` as there) and the value of its product up to the
+    order of the GEMM's sum. No gradient flows through it. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/line_taps.cu`` or raise.
+    A line may be a channel slice of a wider table (``vm_stacked``); the
+    coordinates must be contiguous on CUDA."""
+    _check_taps(lines, coords, axes)
+    with span("line_taps"):
+        if coords.device.type == "cpu":
+            return line_taps_plain(lines, coords, axes, extrapolate)
+        if coords.device.type != "cuda":
+            raise ValueError(f"line taps run on CPU or CUDA, not "
+                             f"{coords.device}")
+        if not coords.is_contiguous():
+            raise ValueError("the line-taps kernel needs contiguous coords")
+        n, r = coords.numel() // 3, lines[0].shape[1]
+        out = torch.empty(coords.shape[:-1] + (r,), dtype=torch.float32,
+                          device=coords.device)
+        pad = (tuple(lines) + (lines[0],) * 2)[:3]
+        axes3 = (tuple(axes) + (0, 0))[:3]
+        fn = build.kernel("line_taps_f32")
+        with torch.cuda.device(coords.device):
+            stream = torch.cuda.current_stream(coords.device).cuda_stream
+            err = fn(*(t.data_ptr() for t in pad),
+                     *(t.stride(0) for t in pad), *(t.shape[0] for t in pad),
+                     *axes3, len(lines), int(extrapolate), coords.data_ptr(),
+                     out.data_ptr(), n, r, stream)
+        if err != 0:
+            raise RuntimeError(f"line_taps kernel launch failed: cudaError "
+                               f"{err}")
+        if n and r:     # the kernel returns without a launch on empty input
+            LAUNCHES["line_taps"] += 1
+        return out
+
+
+def line_matrix_product(lines, coords: torch.Tensor, axes,
+                        extrapolate: bool = False) -> torch.Tensor:
+    """The lookups of ``lines`` at ``coords[..., axes[a]]`` as two-tap
+    matrix products (``lerp_line_matmul``), multiplied left to right."""
+    out = None
+    for line, axis in zip(lines, axes):
+        v = lerp_line_matmul(line, coords[..., axis], extrapolate)
+        out = v if out is None else out * v
+    return out
+
+
+def line_product(lines, coords: torch.Tensor, axes,
+                 extrapolate: bool = False) -> torch.Tensor:
+    """The product of the lookups of ``lines`` at ``coords[..., axes[a]]``
+    (one VM line, or CP's three), routed on what the lookup can observe:
+    where a gradient can flow (grad mode on, and a line or the coordinates
+    need one), ``line_matrix_product``, whose gradients are products;
+    elsewhere ``line_taps``, which never builds the matrix."""
+    if torch.is_grad_enabled() and (coords.requires_grad or any(
+            line.requires_grad for line in lines)):
+        LINE_ROUTE["matrix"] += len(lines)
+        return line_matrix_product(lines, coords, axes, extrapolate)
+    LINE_ROUTE["taps"] += len(lines)
+    return line_taps(tuple(lines), coords.contiguous(), tuple(axes),
+                     extrapolate)
 
 
 def bilerp_plane_packed(plane: torch.Tensor, x: torch.Tensor,

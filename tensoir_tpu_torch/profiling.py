@@ -52,12 +52,12 @@ class RayThroughputMeter:
 
 # every name the port opens with ``span``: the step's phases
 # (train/step.py), the render's layers (render/*.py), and the leaves where
-# the field, its corner re-pack, its line matrices and the MLP inputs are
-# built
+# the field, its corner re-pack, its line matrices, its line taps and the
+# MLP inputs are built
 SPANS = ("forward", "backward", "all_reduce", "adam", "primary",
          "derived_normals", "brdf_render", "bake", "secondary_march",
          "app_stage_global", "visibility", "field", "plane_pack",
-         "mlp_inputs", "line_matrix")
+         "mlp_inputs", "line_matrix", "line_taps")
 _OFF = contextlib.nullcontext()
 
 

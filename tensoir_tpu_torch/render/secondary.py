@@ -626,8 +626,10 @@ class _TileGraph:
     static copies of the tile's inputs and of the pass's tables, the
     pieces, after each piece but the last its K1 call (whether through
     ``RowGather``, table, index, the output buffer the next piece reads),
-    the outputs the capture allocated, and the events of the tiles queued
-    on the card."""
+    the outputs the capture allocated, the launches of the kernels captured
+    inside the pieces (each replay adds them to ``kernels.LAUNCHES``; the
+    capture launches nothing), and the events of the tiles queued on the
+    card."""
 
     def __init__(self, key):
         self.key = key
@@ -670,6 +672,7 @@ class _TileGraph:
             return out
 
         torch.cuda.synchronize()
+        before = dict(rows.LAUNCHES)
         with torch.cuda.stream(side):
             begin()
             rows.PIECES["split"] = split
@@ -678,6 +681,10 @@ class _TileGraph:
             finally:
                 rows.PIECES["split"] = None
                 self.pieces[-1].capture_end()
+        self.launches = {k: rows.LAUNCHES[k] - n for k, n in before.items()
+                         if rows.LAUNCHES[k] != n}
+        for k, n in self.launches.items():
+            rows.LAUNCHES[k] -= n
         TILE_GRAPH["captures"] += 1
         return outs, names
 
@@ -706,6 +713,8 @@ class _TileGraph:
                 if got.data_ptr() != out.data_ptr():
                     raise RuntimeError("K1 did not write the buffer of the "
                                        "tile graph's next piece")
+        for k, n in self.launches.items():
+            rows.LAUNCHES[k] += n
         self.queued.append(torch.cuda.Event())
         self.queued[-1].record()
         TILE_GRAPH["replays"] += 1

@@ -4,7 +4,8 @@ held to a plain TensoRF-CP field in gather form
 (``portbench/reference/models/cp_plain.py``); the benchmark's CP scene
 through the program's and the reference's lifecycle; tiny runs of the two
 cells ``armadillo_cp.eval_view`` and ``armadillo.radiance_train``, sound and
-broken; the CP FLOP count; the ``line_matrix`` span, in a lookup and in every tile
+broken; the CP FLOP count; the ``line_matrix`` span in a lookup that takes a
+gradient, and the ``line_taps`` span in one that does not and in every tile
 of the secondary pass.
 
 Marked ``cuda``: the TF32 control and the faults at the two cells' own
@@ -332,13 +333,14 @@ def test_radiance_step_flops_by_hand():
         5 * w["density"] + 2 * (w["app"] + w["render_mlp"]))
 
 
-def _line_matrix_spans(fn):
-    """How many ``line_matrix`` spans ``fn()`` opens under a profiler."""
+def _line_matrix_spans(fn, name="line_matrix"):
+    """How many ``name`` spans (``line_matrix`` by default) ``fn()`` opens
+    under a profiler."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with torch.no_grad():
             fn()
     return [e.name for e in prof.events()
-            if getattr(e, "is_user_annotation", False)].count("line_matrix")
+            if getattr(e, "is_user_annotation", False)].count(name)
 
 
 @pytest.mark.parametrize("extrapolate", [False, True])
@@ -354,10 +356,16 @@ def test_line_matrix_span_wraps_either_branch_once_a_call(extrapolate):
 
 
 def test_line_matrix_span_opens_under_a_profiler():
+    """Where a gradient can flow (here to the coordinates, as in derived
+    normals) each of CP's three lines opens ``line_matrix``; without one
+    the three lookups are one ``line_taps`` span and no matrix."""
     cfg, params = _cp_field()
+    assert _line_matrix_spans(lambda: TF.density_feature(
+        cfg, params, _coords(n=10)), "line_taps") == 1
+    assert _line_matrix_spans(lambda: TF.density_feature(
+        cfg, params, _coords(n=10))) == 0
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with torch.no_grad():
-            TF.density_feature(cfg, params, _coords(n=10))
+        TF.density_feature(cfg, params, _coords(n=10).requires_grad_())
     evs = prof.events()
     names = [e.name for e in evs if getattr(e, "is_user_annotation", False)]
     assert names.count("line_matrix") == 3
@@ -371,8 +379,9 @@ def test_line_matrix_span_opens_under_a_profiler():
 
 
 def test_an_eager_cp_pass_opens_line_matrix_in_every_tile():
-    """The secondary pass on the CPU (eager tiles): each tile's app stage
-    makes its three line matrices; the bake makes none (an einsum)."""
+    """The secondary pass on the CPU (eager tiles): no gradient flows, so
+    each tile's app stage reads its three lines' taps in one ``line_taps``
+    span and makes no line matrix; the bake makes neither (an einsum)."""
     cfg, params = _cp_field(grid=(12, 12, 12))
     scene = TF.init_field_params(torch.Generator().manual_seed(0), cfg,
                                  (12, 12, 12), [[-1.5] * 3, [1.5] * 3],
@@ -384,15 +393,20 @@ def test_an_eager_cp_pass_opens_line_matrix_in_every_tile():
     dirs = dirs / dirs.norm(dim=-1, keepdim=True)
     mask = torch.ones((P, L), dtype=torch.bool)
     lidx = torch.zeros(P, dtype=torch.int32)
-    TSec.reset_tile_graph_counts()
     tile = 16
-    opened = _line_matrix_spans(lambda: TSec.secondary_shading_tiled(
-        cfg, params, scene, pts, dirs, lidx, mask, TSec.SecondaryKnobs(
-            second_n_sample=8, second_near=0.05, second_far=1.5,
-            secondary_tile=tile, second_app_cap=2)))
+
+    def run():
+        TSec.reset_tile_graph_counts()
+        return TSec.secondary_shading_tiled(
+            cfg, params, scene, pts, dirs, lidx, mask, TSec.SecondaryKnobs(
+                second_n_sample=8, second_near=0.05, second_far=1.5,
+                secondary_tile=tile, second_app_cap=2))
+
+    opened = {name: _line_matrix_spans(run, name)
+              for name in ("line_matrix", "line_taps")}
     n_tiles = P * L // tile
     assert TSec.TILE_GRAPH["eager"] == n_tiles
-    assert opened == 3 * n_tiles
+    assert opened == {"line_matrix": 0, "line_taps": n_tiles}
 
 
 # ------------------------------------------------ the control on the card

@@ -146,7 +146,7 @@ def test_cpu_calls_launch_nothing_and_check_their_input():
     K.row_gather(table.to(torch.bfloat16), idx)
     K.row_scatter_add(idx, torch.from_numpy(val_np), R)
     assert K.LAUNCHES == {"row_gather": 0, "row_gather_bf16": 0,
-                          "row_scatter_add": 0}
+                          "row_scatter_add": 0, "line_taps": 0}
     with pytest.raises(IndexError):
         K.row_gather(table, torch.tensor([0, R], dtype=torch.int32))
     with pytest.raises(IndexError):
@@ -216,7 +216,7 @@ def test_cuda_kernels_match_plain_versions(C):
                                    rtol=1e-5, atol=1e-4)
         torch.cuda.synchronize()
         assert K.LAUNCHES == {"row_gather": 1, "row_gather_bf16": 0,
-                              "row_scatter_add": 1}
+                              "row_scatter_add": 1, "line_taps": 0}
 
 
 def _misaligned(a, dev, dtype, misaligned):
@@ -276,4 +276,4 @@ def test_cuda_bf16_gather_matches_plain_version(C):
         torch.cuda.synchronize()
         assert torch.equal(got, K.row_gather_plain(table, idx))
         assert K.LAUNCHES == {"row_gather": 0, "row_gather_bf16": 1,
-                              "row_scatter_add": 0}
+                              "row_scatter_add": 0, "line_taps": 0}
