@@ -37,7 +37,8 @@ if str(ROOT) not in sys.path:
 import torch  # noqa: E402
 
 from portbench.harness.check import verdict  # noqa: E402
-from portbench.paths import eval_chunk, relight_chunk, train_step  # noqa: E402
+from portbench.paths import eval_chunk, eval_chunk_cp  # noqa: E402
+from portbench.paths import radiance_step, relight_chunk, train_step  # noqa: E402
 
 
 def _tf32(on: bool) -> None:
@@ -69,14 +70,15 @@ def variant_class(base, variant: str):
                     _, _, m = fn(copy.deepcopy(params), copy.deepcopy(state),
                                  scn, batch, key, it)
                     return params, state, m
-            elif variant == "altered" and base is eval_chunk.Path:
+            elif variant == "altered" and issubclass(base, eval_chunk.Path):
                 def broken(*a, **kw):
                     out = dict(fn(*a, **kw))
                     rgb = out["rgb_map"].clone()
                     rgb[0] = 1.0 - rgb[0]
                     out["rgb_map"] = rgb
                     return out
-            elif variant == "altered" and base is relight_chunk.Path:
+            elif variant == "altered" and issubclass(base,
+                                                     relight_chunk.Path):
                 def wrap(one):
                     def broken_one(*a, **kw):
                         outs = list(one(*a, **kw))
@@ -95,7 +97,9 @@ def variant_class(base, variant: str):
 
 
 PATHS = {"train_step": train_step.Path, "eval_chunk": eval_chunk.Path,
-         "relight_chunk": relight_chunk.Path}
+         "relight_chunk": relight_chunk.Path,
+         "eval_chunk_cp": eval_chunk_cp.Path,
+         "radiance_step": radiance_step.Path}
 
 
 def read(config, traffic, *, variant: str, seed: int, seconds: float,
@@ -104,7 +108,7 @@ def read(config, traffic, *, variant: str, seed: int, seconds: float,
     cls = variant_class(PATHS[traffic["path"]], variant)
     path = cls(config=config, traffic=traffic, seed=seed, device=device)
     path.setup()
-    if traffic["path"] != "train_step":
+    if not issubclass(cls, train_step.Path):
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds:
             path.units(1)

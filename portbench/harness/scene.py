@@ -1,7 +1,8 @@
 """What the benchmark makes from ``--seed`` and hands to both sides: the
 raw field (random VM factors and networks plus the solid blob), the cameras
-and their rays, and the held-out environment maps. Everything is made on
-the run's device from one ``torch.Generator`` there, in a few large calls.
+and their rays; and, from a traffic's fixed key, the held-out environment
+maps. Everything is made on the run's device from one ``torch.Generator``
+there, in a few large calls.
 
 ``derive_field`` then takes the raw field through the training run's
 events (alpha mask, shrink, upsample) with the lifecycle module it is
@@ -203,10 +204,11 @@ def ray_colours(rays: torch.Tensor) -> torch.Tensor:
     return (0.5 + 0.35 * torch.sin(3.0 * rays[:, 3:6] + 1.0)).clamp(0, 1)
 
 
-def env_maps(n: int, h: int, w: int, seed: int, device) -> list:
+def env_maps(n: int, h: int, w: int, key: int, device) -> list:
     """``n`` HDR lat-long maps [h, w, 3] (numpy float32): a sky gradient
-    of a random tint and a few sharp random suns on a floor of light."""
-    g = generator(seed, MAPS, device)
+    of a random tint and a few sharp random suns on a floor of light,
+    drawn from ``key`` alone (a traffic's ``work_key``, not a run's seed)."""
+    g = generator(key, MAPS, device)
     theta = torch.linspace(0, np.pi, h, device=device)[:, None, None]
     phi = torch.linspace(-np.pi, np.pi, w, device=device)[None, :, None]
     dirs = torch.cat([torch.sin(theta) * torch.cos(phi),

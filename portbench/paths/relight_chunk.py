@@ -5,10 +5,14 @@ back to the host in one transfer per light (every output of the first
 light, the two relit images of the others). Chunk by chunk, so that a ray
 is done once every light has relit it.
 
-The light draws come from one generator on the card, whose state before
-each call is kept; the check relights a sample of the window's chunks
-with the plain reference from the same raw field, maps and draws, and
-compares every output.
+The chunk marches only the (point, light sample) pairs above the surface's
+horizon, so the maps and the normals set its work. So the five held-out
+maps and the normal network are data of the traffic, drawn from its
+``work_key``, not from the run's seed; the rest of the field and the light
+draws stay the seed's, so that every seed checks another field. The light draws come from one generator on the
+card, whose state before each call is kept; the check relights a sample
+of the window's chunks with the plain reference from the same raw field,
+maps and draws, and compares every output.
 """
 from __future__ import annotations
 
@@ -35,6 +39,13 @@ def _mods(ref: bool):
     return field, lifecycle, rp, EnvironmentLight
 
 
+def kept_share(pairs: list):
+    """Kept pairs over offered pairs of ``pairs`` [(kept, offered)]; None
+    where no pair was offered (or the program's counts were not read)."""
+    offered = sum(o for _, o in pairs)
+    return sum(k for k, _ in pairs) / offered if offered else None
+
+
 class Path:
     def __init__(self, *, config, traffic, seed, device):
         self.c = config["config"]
@@ -46,6 +57,8 @@ class Path:
         self.chunk = self.t["chunk"]
         self.lights = [f"held_out_{i}" for i in range(self.t["lights"])]
         self.hits = []      # surface rays of each window chunk
+        self.pairs = []     # (kept, offered) pairs of each window chunk
+        self.vis_pack = None    # the program's VIS_PACK counts
         self.outputs, self.states = {}, {}
         self.checked, self.worst_output = [], None
 
@@ -54,13 +67,20 @@ class Path:
         fcfg = field.FieldConfig(**self.fk)
         params, scn, n = scene.derive_field(lc, fcfg, self.fk, self.c,
                                             self.recipe, self.seed, self.dev)
+        # the normal network as the raw field of the key draws it; the
+        # mask, shrink and upsample above read and change no network
+        key = self.t["work_key"]
+        reso = lc.n_to_reso(self.recipe["init_voxels"], knobs.AABB)
+        params["normal_mlp"] = scene.raw_field(self.fk, reso, key,
+                                               self.dev)["normal_mlp"]
         if ref:
             env = env_cls(device=self.dev)
         else:
             env = env_cls(None, device=self.dev)
+            self.vis_pack = rp.VIS_PACK
         h, w = self.t["env_hw"]
         for name, img in zip(self.lights, scene.env_maps(
-                len(self.lights), h, w, self.seed, self.dev)):
+                len(self.lights), h, w, key, self.dev)):
             env.add_light(name, img)
         fns = {name: rp.make_relight_chunk_fn(
             fcfg, env, name, n_samples=n,
@@ -98,13 +118,17 @@ class Path:
 
     def _chunk(self, i: int) -> None:
         """Relight chunk ``i`` under every light, keep its outputs and draws
-        the first time."""
+        the first time, and the pairs it offered and marched."""
+        before = dict(self.vis_pack or {})
         flats, states = self._relight(self.fns, self.params, self.scene,
                                       self.rays, i, self.key)
         if i not in self.outputs:
             self.outputs[i], self.states[i] = flats, states
         # light 0 brings every output back: its acc is column 6
         self.hits.append(int(np.sum(flats[0][:, 6] > 0.5)))
+        if self.vis_pack is not None:
+            self.pairs.append(tuple(self.vis_pack[k] - before[k]
+                                    for k in ("kept", "offered")))
 
     def units(self, n: int) -> int:
         """``n`` chunks under every light; the camera rays relit."""
@@ -141,7 +165,8 @@ class Path:
                 "checked_chunks": self.checked,
                 "worst_output": self.worst_output,
                 "surface_share": sum(self.hits) / max(
-                    1, len(self.hits) * self.chunk)}
+                    1, len(self.hits) * self.chunk),
+                "kept_share": kept_share(self.pairs)}
 
     def release(self):
         for k in ("params", "scene", "fns", "key"):

@@ -17,7 +17,9 @@ CASES = [("armadillo.relight_train", "tf32"),
          ("armadillo.eval_view", "tf32"),
          ("armadillo.eval_view", "altered"),
          ("armadillo.relight_view", "tf32"),
-         ("armadillo.relight_view", "altered")]
+         ("armadillo.relight_view", "altered"),
+         ("armadillo_cp.eval_view", "tf32"),
+         ("armadillo.radiance_train", "tf32")]
 
 
 @pytest.fixture

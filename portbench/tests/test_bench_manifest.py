@@ -76,9 +76,19 @@ def test_configs(conf):
     assert body["name"] == conf["name"]
     assert len(conf["reduced"]) <= 16
     assert all(NAME.match(k) for k in conf["reduced"])
+    # each configuration against its own sources: TensoIR's armadillo
+    # file, and the keys and values that an ``assumed`` entry ending in
+    # ``_source_keys`` takes from a second source (armadillo_cp's TensorCP
+    # block), which the configuration has to hold as given there
     base = json.loads((PKG / "configs" / "armadillo.json").read_text())
+    second = {}
+    for k, v in body.get("assumed", {}).items():
+        if k.endswith("_source_keys"):
+            second.update(v)
+    assert {k: body["config"].get(k) for k in second} == second
     changed = sorted(k for k in body["config"]
-                     if body["config"][k] != base["config"].get(k))
+                     if body["config"][k] != base["config"].get(k)
+                     and k not in second)
     assert changed == sorted(conf["reduced"])
     widths = ("n_lamb_sigma", "n_lamb_sh", "data_dim_color", "featureC",
               "numLgtSGs")
