@@ -1589,7 +1589,7 @@ def phase_bench_train(streams):
         fails.append(f"a kernel was not launched on the bench path: "
                      f"{launches}")
     if marched != {"pairs": 10 * cap, "tiles": 10 * cap // st[
-            "secondary_tile"]}:
+            "secondary_tile"], "skipped": 0}:
         fails.append(f"secondary marched {marched} in 10 steps, not "
                      f"10 x {cap} rows")
     if not all(bf16_at.values()):
@@ -2003,8 +2003,9 @@ def eval_knobs(cfg) -> dict:
 def _eval_probe(log: list):
     """Record each eval chunk the block renders: which chunk function
     (``main``, or ``gbuf`` for the rescale ratio's G-buffer chunks), its
-    time (CUDA events), its K1/K2 launches, its secondary tiles and its
-    line lookups by route (``LINE_ROUTE``: a tile graph's lookups count at
+    time (CUDA events), its K1/K2 launches, its secondary tiles marched and
+    skipped (``MARCHED``: tiles of background rays alone) and its line
+    lookups by route (``LINE_ROUTE``: a tile graph's lookups count at
     its capture). Wraps ``render.eval.make_eval_chunk_fn``, which
     ``evaluation_iter`` calls."""
     import torch
@@ -2022,6 +2023,7 @@ def _eval_probe(log: list):
             before = dict(LAUNCHES)
             routes = dict(LINE_ROUTE)
             tiles = secondary.MARCHED["tiles"]
+            skipped = secondary.MARCHED["skipped"]
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -2029,6 +2031,7 @@ def _eval_probe(log: list):
             t1.record()
             log.append({"kind": kind, "events": (t0, t1),
                         "tiles": secondary.MARCHED["tiles"] - tiles,
+                        "skipped": secondary.MARCHED["skipped"] - skipped,
                         "launches": {k: LAUNCHES[k] - before[k]
                                      for k in LAUNCHES},
                         "line_route": {k: LINE_ROUTE[k] - routes[k]
@@ -2045,8 +2048,10 @@ def _eval_probe(log: list):
 
 def _chunk_stats(chunks) -> dict:
     """Per kind of chunk (eval ``main``, G-buffer ``gbuf``, ``relight``):
-    count, median and total ms, secondary tiles and launches per chunk, and
-    the distinct counts of line lookups by route a chunk made."""
+    count, median and total ms, secondary tiles marched and skipped per
+    chunk (distinct counts) and the skipped share of all, launches per
+    chunk, and the distinct counts of line lookups by route a chunk
+    made."""
     out = {}
     for kind in ("main", "gbuf", "relight"):
         mine = [c for c in chunks if c["kind"] == kind]
@@ -2057,6 +2062,10 @@ def _chunk_stats(chunks) -> dict:
             "chunks": len(mine), "median_ms": float(np.median(ms)),
             "total_s": sum(ms) / 1e3,
             "tiles_per_chunk": sorted({c["tiles"] for c in mine}),
+            "skipped_per_chunk": sorted({c.get("skipped", 0) for c in mine}),
+            "skipped_share": (sum(c.get("skipped", 0) for c in mine)
+                              / max(1, sum(c["tiles"] + c.get("skipped", 0)
+                                           for c in mine))),
             "launches_per_chunk": {
                 k: sum(c["launches"][k] for c in mine) / len(mine)
                 for k in mine[0]["launches"]},
@@ -2165,9 +2174,11 @@ def phase_eval(trained):
     fails = []
     if main.get("chunks") != want_chunks:
         fails.append(f"{main.get('chunks')} main chunks, not {want_chunks}")
-    if main.get("tiles_per_chunk") != [want_tiles]:
-        fails.append(f"tiles per chunk {main.get('tiles_per_chunk')}, not "
-                     f"{want_tiles}")
+    main_tiles = sorted({c["tiles"] + c["skipped"] for c in chunks
+                         if c["kind"] == "main"})
+    if main_tiles != [want_tiles]:
+        fails.append(f"tiles marched and skipped per chunk {main_tiles}, "
+                     f"not {want_tiles}")
     if not (launches["row_gather"] > 0 and launches["row_gather_bf16"] > 0):
         fails.append(f"K1 not launched in the eval: {launches}")
     if not launches["line_taps"] > 0:

@@ -70,10 +70,14 @@ def render_with_brdf(
     sample_method: str = "stratified_sampling",
     key: Optional[torch.Generator] = None,
     secondary: SecondaryKnobs = SecondaryKnobs(),
+    ray_used: Optional[torch.Tensor] = None,
 ):
     """Physically based RGB per ray, [P, 3]; with
     ``secondary.secondary_stats`` also the secondary pass's statistics,
-    (rgb, stats)."""
+    (rgb, stats). ``ray_used`` [P] bool, where given, marks the rays whose
+    RGB the caller keeps: the others' RGB may then leave out their
+    visibility and indirect light, whose tiles the secondary pass skips
+    (``secondary_shading_tiled``)."""
     rays_o, rays_d = rays[:, :3], rays[:, 3:6]
     dev = rays.device
     surface_xyz = rays_o + depth_map[:, None] * rays_d           # [P, 3]
@@ -95,7 +99,7 @@ def render_with_brdf(
         secondary = dataclasses.replace(secondary, secondary_compact_frac=0.0)
     sec = secondary_shading_tiled(
         cfg, params, scene, surface_xyz.detach(), surf2l, light_idx,
-        cosine > 1e-6, secondary)
+        cosine > 1e-6, secondary, ray_used=ray_used)
     visibility, indirect = sec[0], sec[1]
 
     specular = ggx_specular(normal_map, surf2c, surf2l, roughness_map,

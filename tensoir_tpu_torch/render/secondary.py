@@ -22,8 +22,9 @@ bf16 block pack per group of consecutive samples instead of one 8-corner
 row per sample; with ``secondary_app_hoist`` the tiles only march, and the
 colour of every tile's selected samples is computed at once after the last
 tile. These knobs travel as one ``SecondaryKnobs``. The whole pass runs
-without gradients, tile by tile, and never waits on the device but to keep
-at most two replayed tiles queued there.
+without gradients, tile by tile, and never waits on the device but to read
+which tiles hold a pair whose result the caller uses (``ray_used``: the
+others are skipped) and to keep at most two replayed tiles queued there.
 
 On CUDA every tile runs the same kernels on the same shapes, so the pass
 captures one tile as CUDA graphs and replays them for each tile: a few
@@ -96,8 +97,9 @@ FAST_MARCH_KNOBS = dict(
 
 # rows and tiles marched since the last reset (real pairs, or under the
 # hemisphere compaction every row of its fixed capacity; not the padding of
-# the last tile): lets a run show how much secondary work its steps did
-MARCHED = {"pairs": 0, "tiles": 0}
+# the last tile), and tiles skipped because no ray of theirs is used
+# (``ray_used``): lets a run show how much secondary work its steps did
+MARCHED = {"pairs": 0, "tiles": 0, "skipped": 0}
 
 
 # tiles of ``secondary_shading_tiled`` since the last reset, each counted
@@ -731,9 +733,11 @@ def _eager_tiles(cfg, params, scene, tables, knobs):
 
 def _tile_runner(cfg, params, scene, tables, knobs, first):
     """``run(pts, dirs, lidx, ok) -> (outputs, names)`` for the pass's
-    tiles in turn, ``first`` the first tile's inputs: on CUDA the knob
-    set's graph, captured on the first tile where its tensor key is new;
-    for CPU tensors, or inside another capture, the eager tile."""
+    tiles in turn, ``first`` the first tile's inputs (only their shapes,
+    strides, dtypes and devices key the graph): on CUDA the knob set's
+    graph, captured on the first tile ``run`` is given where its tensor key
+    is new, whichever tile that is; for CPU tensors, or inside another
+    capture, the eager tile."""
     if not first[0].is_cuda or torch.cuda.is_current_stream_capturing():
         return _eager_tiles(cfg, params, scene, tables, knobs)
     knob_set, key = tile_graph_key(cfg, params, scene, tables, knobs, first)
@@ -769,11 +773,18 @@ def secondary_shading_tiled(
     light_idx: torch.Tensor,     # [P] int
     pair_mask: torch.Tensor,     # [P, L] bool (cosine mask)
     secondary: SecondaryKnobs,
+    ray_used: Optional[torch.Tensor] = None,    # [P] bool
 ):
     """Visibility [P, L, 1] and indirect light [P, L, 3] of every (surface
     point, light dir) pair, marched ``secondary_tile`` pairs at a time;
     pairs outside ``pair_mask`` get zeros. With ``secondary_stats`` also
     the pass's cap occupancy statistics (a dict of 0-d tensors).
+
+    ``ray_used`` marks the points whose results the caller reads (None:
+    all). Without compaction, hoist or stats, a tile that holds no pair of
+    a used point is not marched (``MARCHED["skipped"]``) and gets zeros,
+    so the pass reads the tiles' flags to the host once; every other tile
+    marches the pairs it would march without ``ray_used``, bit for bit.
 
     ``secondary_compact_frac`` in (0, 1) marches only the pairs in
     ``pair_mask``, packed in order into ceil(P L frac / tile) tiles; pairs
@@ -789,6 +800,21 @@ def secondary_shading_tiled(
     k = secondary
     tile, window = k.secondary_tile, k.second_window
     group = k.second_march_group
+    P, L, _ = surf2light.shape
+    total = P * L
+    compact = 0.0 < k.secondary_compact_frac < 1.0
+    todo = None     # the tiles to march, where some are skipped
+    if ray_used is not None and not (compact or k.secondary_app_hoist
+                                     or k.secondary_stats):
+        n_tiles = -(-total // tile)
+        used = ray_used[:, None].expand(P, L).reshape(-1)
+        used = torch.cat([used, used.new_zeros(n_tiles * tile - total)])
+        flags = used.reshape(n_tiles, tile).any(1).tolist()
+        todo = [t for t, f in enumerate(flags) if f]
+        MARCHED["skipped"] += n_tiles - len(todo)
+        if not todo:
+            return (surf_pts.new_zeros((P, L, 1)),
+                    surf_pts.new_zeros((P, L, 3)))
     baked = coarse = baked27 = app_baked = None
     if k.secondary_use_baked:
         with span("bake"):
@@ -817,13 +843,10 @@ def secondary_shading_tiled(
                                                               grid.shape)
                 app_baked = (grid, cells)
 
-    P, L, _ = surf2light.shape
     pts = surf_pts[:, None, :].expand(P, L, 3).reshape(-1, 3)
     dirs = surf2light.reshape(-1, 3)
     lidx = light_idx[:, None].expand(P, L).reshape(-1)
     mask = pair_mask.reshape(-1)
-    total = P * L
-    compact = 0.0 < k.secondary_compact_frac < 1.0
     compact_overflow = None
     if compact:
         # march only the pairs above the horizon, in order, up to cap
@@ -867,14 +890,15 @@ def secondary_shading_tiled(
                  probe_window_back=k.second_window_probe_back,
                  app_cells=None if app_baked is None else tuple(app_baked[1]))
     rows = names = None     # each output of the tiles, [n_tiles, ...]
+    new = torch.Tensor.new_empty if todo is None else torch.Tensor.new_zeros
     with span("secondary_march"):
         run = _tile_runner(cfg, params, scene, tables, knobs,
                            (pts[:tile], dirs[:tile], lidx[:tile], mask[:tile]))
-        for t in range(n_tiles):
+        for t in range(n_tiles) if todo is None else todo:
             sl = slice(t * tile, (t + 1) * tile)
             outs, names = run(pts[sl], dirs[sl], lidx[sl], mask[sl])
             if rows is None:
-                rows = [o.new_empty((n_tiles,) + o.shape) for o in outs]
+                rows = [new(o, (n_tiles,) + o.shape) for o in outs]
             for r, o in zip(rows, outs):
                 r[t].copy_(o)
             MARCHED["pairs"] += min(tile, n_rows - t * tile)

@@ -5,7 +5,9 @@ tensoir_tpu.render.train_render.render_train_batch).
 The reference relights every ray whose accumulated opacity passes 0.5 (a
 count that varies); here a fixed ``relight_ray_cap`` of rays is relit,
 those rays first (a stable argsort), and the result is scattered back.
-Rays that are not relit keep the white background. With
+Rays that are not relit keep the white background. Where every ray is
+relit and no gradient is recorded (an eval chunk), the secondary march
+skips the tiles whose rays all keep it. With
 ``normals_kind='gt_normals'`` the dataset's normals ``normal_gt`` [B, 3]
 take the place of the normal map.
 """
@@ -60,12 +62,19 @@ def render_train_batch(
     if cfg.normals_kind == "gt_normals" and normal_gt is not None:
         ret["normal_map"] = normal_gt
     cap = min(relight_ray_cap, B) if relight_ray_cap > 0 else B
+    ray_used = None
     if cap < B:
         # stable: the rays with acc > 0.5 first, each group in batch order
         order = torch.argsort((~acc_mask).to(torch.uint8), stable=True)
         sel = order[:cap]
     else:
         sel = torch.arange(B, device=rays.device)
+        if not torch.is_grad_enabled():
+            # an eval chunk's rays lie in image order, so whole tiles of
+            # the march may hold only rays that keep the white background;
+            # a training batch's shuffled rays fill every tile, and its
+            # step reads nothing back
+            ray_used = acc_mask
     sel_valid = acc_mask[sel]
 
     with span("brdf_render"):
@@ -73,7 +82,8 @@ def render_train_batch(
             cfg, params, scene, ret["depth_map"][sel], ret["normal_map"][sel],
             ret["albedo_map"][sel], ret["roughness_map"][sel],
             ret["fresnel_map"][sel], rays[sel], light_idx[sel],
-            sample_method=sample_method, key=key, secondary=secondary)
+            sample_method=sample_method, key=key, secondary=secondary,
+            ray_used=ray_used)
     if secondary.secondary_stats:
         rgb_sel, sec_stats = rgb_sel
         ret.update({f"sec/{k}": v for k, v in sec_stats.items()})

@@ -368,8 +368,9 @@ def test_secondary_shading_tiled_fast_knobs_match_jax(masked, compact_frac,
         torch.from_numpy(mask), tiled_knobs(**kw))
     # compacted: the 768 rows of ceil(1280 * 0.5625 / 256) = 3 tiles;
     # otherwise the 1280 pairs in 5 tiles
-    assert TSec.MARCHED == ({"pairs": 768, "tiles": 3} if compact_frac
-                            else {"pairs": P * L, "tiles": 5})
+    assert TSec.MARCHED == ({"pairs": 768, "tiles": 3, "skipped": 0}
+                            if compact_frac else
+                            {"pairs": P * L, "tiles": 5, "skipped": 0})
     assert tvis.shape == (P, L, 1) and tind.shape == (P, L, 3)
     np.testing.assert_allclose(_np(tvis), np.asarray(jvis), **OWN_BAKE)
     np.testing.assert_allclose(_np(tind), np.asarray(jind), **OWN_BAKE)
@@ -439,7 +440,7 @@ def test_bench_cpu_step_matches_jax():
     TSec.reset_march_counts()
     _, tstate, tm = tstep(tp, topt.init(tp), ts, batch, None, 10000)
     # 256 relit rays x 32 directions compacted into 5 tiles of 1024
-    assert TSec.MARCHED == {"pairs": 5120, "tiles": 5}
+    assert TSec.MARCHED == {"pairs": 5120, "tiles": 5, "skipped": 0}
     for k in ("total_loss", "loss_rgb", "loss_rgb_brdf"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
                                    err_msg=k)

@@ -106,7 +106,7 @@ def test_grouped_step_matches_jax(field, knob, one_torch_thread):
     TSec.reset_march_counts()
     tstate, tm = _port_step(jcfg, jp, js, batch, st)
     # 128 relit rays x 32 directions compacted into 5 tiles of 512
-    assert TSec.MARCHED == {"pairs": 2560, "tiles": 5}
+    assert TSec.MARCHED == {"pairs": 2560, "tiles": 5, "skipped": 0}
     assert set(tm) == set(jm)
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,

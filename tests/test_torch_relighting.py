@@ -429,7 +429,8 @@ def test_relight_chunk_matches_jax(setup, fast_vis):
     kept = TRP.VIS_PACK["kept"]
     assert TRP.VIS_PACK["offered"] == CHUNK * N_LIGHT
     assert 0 < kept < CHUNK * N_LIGHT
-    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // VIS_TILE)}
+    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // VIS_TILE),
+                            "skipped": 0}
     names = ("relight_without_bg", "relight_with_bg", "acc", "albedo",
              "roughness", "normal", "depth", "rgb")
     assert len(got) == len(want) == 8

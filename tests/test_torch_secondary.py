@@ -171,7 +171,7 @@ def test_secondary_shading_tiled_matches_jax(masked, use_baked):
         port_cfg(jcfg), tp, ts, t(pts), t(dirs), t(lidx, torch.int32),
         torch.from_numpy(mask), tiled_knobs(**kw))
     # 640 pairs in three tiles of 256, the last one padded
-    assert TSec.MARCHED == {"pairs": P * L, "tiles": 3}
+    assert TSec.MARCHED == {"pairs": P * L, "tiles": 3, "skipped": 0}
     assert tvis.shape == (P, L, 1) and tind.shape == (P, L, 3)
     tol = OWN_BAKE if use_baked else MARCH   # each package bakes its own
     np.testing.assert_allclose(_np(tvis), np.asarray(jvis), **tol)

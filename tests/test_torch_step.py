@@ -172,7 +172,7 @@ def test_step_static_hands_each_knob_to_the_march(name, monkeypatch):
 
     got = []
 
-    def tiled(*args):
+    def tiled(*args, **kw):
         got.append(args[-1])
         raise Reached
 

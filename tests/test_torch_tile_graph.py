@@ -281,6 +281,41 @@ def test_pass_equals_the_eager_loop(dev, case):
 
 
 @pytest.mark.parametrize("dev", DEVICES)
+def test_skipped_tiles_capture_on_the_first_marched_tile(dev):
+    """With ``ray_used`` marking points of tiles 1 and 3 only, the pass
+    skips tiles 0 and 2 (zeros there), captures on tile 1 and replays tile
+    3, then replays both; the marched tiles equal the eager loop bit for
+    bit."""
+    _need(dev)
+    TSec._GRAPHS.clear()
+    cfg, params, scene = _field(dev)
+    pairs = _pairs(cfg, dev)
+    kw = _knobs("armadillo", dev)
+    P = pairs[0].shape[0]
+    assert _tiles(pairs, kw) == 4
+    used = torch.zeros(P, dtype=torch.bool, device=dev)
+    used[[P // 4 + 1, 3 * P // 4 + 5]] = True
+    want, _ = _run(eager_pass, cfg, params, scene, *pairs, kw)
+    tile = kw.secondary_tile
+    for counts in ((1, 1), (0, 2)):
+        TSec.reset_tile_graph_counts()
+        TSec.reset_march_counts()
+        got, _ = _run(lambda: TSec.secondary_shading_tiled(
+            cfg, params, scene, *pairs, kw, ray_used=used))
+        if dev == "cpu":
+            counts = (0, 0)
+        assert TSec.TILE_GRAPH == {"captures": counts[0],
+                                   "replays": counts[1],
+                                   "eager": 2 - sum(counts)}
+        assert TSec.MARCHED == {"pairs": 2 * tile, "tiles": 2,
+                                "skipped": 2}
+        for g, w in zip(got, want):
+            g, w = g.reshape(4, tile, -1), w.reshape(4, tile, -1)
+            assert torch.equal(g[1::2], w[1::2])
+            assert not g[0::2].any()
+
+
+@pytest.mark.parametrize("dev", DEVICES)
 def test_in_place_update_and_new_bake_replay(dev):
     """After Adam-like in-place updates (and so a new bake) the pass
     replays the graph it has, and equals the eager loop on the new

@@ -148,8 +148,9 @@ def test_render_with_brdf_estimators_match_jax(method, monkeypatch):
                         lambda *a, **k: replayed)
     compacted = []
     real_tiled = TBR.secondary_shading_tiled
-    monkeypatch.setattr(TBR, "secondary_shading_tiled", lambda *a: (
-        compacted.append(a[-1].secondary_compact_frac), real_tiled(*a))[1])
+    monkeypatch.setattr(TBR, "secondary_shading_tiled", lambda *a, **k: (
+        compacted.append(a[-1].secondary_compact_frac),
+        real_tiled(*a, **k))[1])
     leaves = [t(x).requires_grad_(True) for x in (
         s["normal"], s["albedo"], s["rough"], np.asarray(jp["lgt_sgs"]))]
     rest, sec = split_knobs(kw)

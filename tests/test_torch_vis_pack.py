@@ -129,7 +129,8 @@ def test_chunk_equals_the_dense_reference(sides, fast_vis, case):
     _assert_equal(got, want)
     kept = _kept(s, want, draws)
     assert TRP.VIS_PACK == {"offered": B * L, "kept": kept}
-    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // vis_tile)}
+    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // vis_tile),
+                            "skipped": 0}
     acc = want[2]
     if case == "background":
         assert kept == 0 and (acc <= 0.5).all()
@@ -187,7 +188,7 @@ def test_every_pair_kept_packs_the_dense_tiles(sides, fast_vis):
     assert got.shape == (n_pts, n_dirs)
     assert torch.equal(got.reshape(-1), want)
     assert TRP.VIS_PACK == {"offered": n, "kept": n}
-    assert TSec.MARCHED == {"pairs": n, "tiles": n_tiles}
+    assert TSec.MARCHED == {"pairs": n, "tiles": n_tiles, "skipped": 0}
     assert (want < 0.5).any() and (want > 0.5).any()   # some occluded
 
 
@@ -201,6 +202,7 @@ def test_counts_add_up_over_calls(sides):
     _chunk(s, False, _background_rays(s), False, TILE, draws)
     kept = _kept(s, outs, draws)
     assert TRP.VIS_PACK == {"offered": 2 * B * L, "kept": kept}
-    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // TILE)}
+    assert TSec.MARCHED == {"pairs": kept, "tiles": -(-kept // TILE),
+                            "skipped": 0}
     TRP.reset_vis_pack_counts()
     assert TRP.VIS_PACK == {"offered": 0, "kept": 0}
