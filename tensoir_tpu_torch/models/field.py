@@ -43,7 +43,7 @@ from tensoir_tpu_torch.models import lighting, mlps
 from tensoir_tpu_torch.models.mlps import dot
 from tensoir_tpu_torch.ops.interp import (bilerp_plane_group_packed,
                                           bilerp_plane_packed,
-                                          line_product,
+                                          device_constant, line_product,
                                           resize_bilinear_align_corners,
                                           resize_line_align_corners,
                                           trilerp_volume)
@@ -202,8 +202,9 @@ def step_size(aabb, grid_size: Tuple[int, int, int], step_ratio: float):
     The mean is the sum times 1/3, as XLA computes ``jnp.mean``, on every
     device (``Tensor.mean`` divides on the CPU and multiplies on CUDA). The
     samples sit on the voxel grid's half steps, so an ulp of the step moves
-    some of them across the nearest-voxel test's rounding ties."""
-    grid = torch.as_tensor(grid_size, dtype=torch.float32, device=aabb.device)
+    some of them across the nearest-voxel test's rounding ties. The grid's
+    sizes are a kept device constant (``device_constant``)."""
+    grid = device_constant(grid_size, torch.float32, aabb.device)
     units = (aabb[1] - aabb[0]) / (grid - 1.0)
     return (units[0] + units[1] + units[2]) * (1.0 / 3.0) * step_ratio
 

@@ -17,7 +17,7 @@ domain's edge agree with the reference.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,24 @@ def clip(x: torch.Tensor, lo: Optional[float],
     if hi is not None:
         x = torch.minimum(x, x.new_full((), hi))
     return x
+
+
+# small host constants on their devices (``device_constant``)
+_CONSTANTS: Dict = {}
+
+
+def device_constant(values, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and kept; never written to. A copy from the
+    host waits for the device, and a CUDA graph cannot capture one: the
+    relight chunk's graphs capture ``render_rays``, which reads two such
+    constants, after a first run that makes them."""
+    k = (tuple(values), dtype, torch.device(device))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def recip(d: float) -> float:

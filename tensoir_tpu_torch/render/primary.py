@@ -27,7 +27,7 @@ from tensoir_tpu_torch.models import field as F
 from tensoir_tpu_torch.models import mlps
 from tensoir_tpu_torch.ops.color import linear2srgb
 from tensoir_tpu_torch.ops.compositing import raw2alpha
-from tensoir_tpu_torch.ops.interp import clip
+from tensoir_tpu_torch.ops.interp import clip, device_constant
 from tensoir_tpu_torch.ops.rays import (safe_l2_normalize, sample_ray,
                                         sample_ray_ndc, z_to_dists)
 from tensoir_tpu_torch.ops.sh import eval_sh_bases
@@ -349,8 +349,8 @@ def render_rays(
 
     w1 = w_sel[..., None]
     acc1 = (1.0 - acc_map[..., None]) * bgw
-    normal_map = (w1 * normals).sum(-2) + acc1 * normals.new_tensor(
-        [0.0, 0.0, 1.0])
+    normal_map = (w1 * normals).sum(-2) + acc1 * device_constant(
+        (0.0, 0.0, 1.0), normals.dtype, normals.device)
     albedo_map = (w1 * albedo).sum(-2) + acc1
     roughness_map = (w1 * roughness).sum(-2) + acc1
     fresnel_map = torch.full_like(albedo_map, cfg.fixed_fresnel) + acc1

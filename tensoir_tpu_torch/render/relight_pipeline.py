@@ -10,7 +10,11 @@ Rays go in fixed chunks. Only the (surface point, light sample) pairs
 that count, on the surface and above its horizon, are marched: they are
 packed into full visibility tiles, and the others read visibility 0. A
 chunk is a plain closure under ``torch.no_grad()`` on the device that
-holds the field: nothing is compiled, and K2 never runs. A
+holds the field: nothing is compiled, and K2 never runs. On CUDA its two
+stages of fixed shapes, the G-buffer pass and each visibility tile, are
+replays of CUDA graphs captured at the first call (``secondary.
+graph_runner``: K1 launched from Python between the graphs' pieces); the
+light draw, the one read of the kept count and the shading stay eager. A
 view's rays go to the device once; each chunk's two relit images (and,
 for the first light of a saved view, its G-buffer maps) come back in one
 transfer. With ``fast_vis`` the baked sigma grid and its coarse occupancy
@@ -51,6 +55,19 @@ def reset_vis_pack_counts() -> None:
         VIS_PACK[k] = 0
 
 
+# the relight chunks' stages since the last reset, each run counted once by
+# how it ran: the G-buffer pass and each visibility tile captured as CUDA
+# graphs (the capture's first run gives its result) or replayed from them,
+# or eager (CPU tensors, or inside another capture)
+RELIGHT_GRAPH = {"gbuffer_captures": 0, "gbuffer_replays": 0,
+                 "vis_captures": 0, "vis_replays": 0, "eager": 0}
+
+
+def reset_relight_graph_counts() -> None:
+    for k in RELIGHT_GRAPH:
+        RELIGHT_GRAPH[k] = 0
+
+
 def visibility_of_kept_pairs(march, surface_xyz: torch.Tensor,
                              surf2l: torch.Tensor, keep: torch.Tensor,
                              vis_tile: int) -> torch.Tensor:
@@ -58,9 +75,11 @@ def visibility_of_kept_pairs(march, surface_xyz: torch.Tensor,
     [B, L] marks, 0 for the others. The kept pairs, in index order, are
     packed into tiles of ``vis_tile`` (the last padded with zero points and
     unit directions), and ``march(pts, dirs)`` gives each tile's [vis_tile]
-    transmittance. A pair's march reads its own row only and every tile
-    has the one shape, so a kept pair's visibility does not depend on where
-    in a tile it lands. The kept count is one host read a call."""
+    transmittance, copied out before the next tile is marched (a replayed
+    graph's output is overwritten by its next replay). A pair's march reads
+    its own row only and every tile has the one shape, so a kept pair's
+    visibility does not depend on where in a tile it lands. The kept count
+    is one host read a call."""
     B, L = keep.shape
     idx = torch.nonzero(keep.reshape(-1)).squeeze(1)
     kept = idx.shape[0]
@@ -76,11 +95,13 @@ def visibility_of_kept_pairs(march, surface_xyz: torch.Tensor,
     if pad:
         pts = torch.cat([pts, pts.new_zeros((pad, 3))])
         dirs = torch.cat([dirs, dirs.new_ones((pad, 3))])
-    tiles = [march(pts[t0:t0 + vis_tile], dirs[t0:t0 + vis_tile])
-             for t0 in range(0, n_tiles * vis_tile, vis_tile)]
+    marched = surf2l.new_empty((n_tiles * vis_tile,))
+    for t0 in range(0, n_tiles * vis_tile, vis_tile):
+        marched[t0:t0 + vis_tile] = march(pts[t0:t0 + vis_tile],
+                                          dirs[t0:t0 + vis_tile])
     secondary.MARCHED["pairs"] += kept
     secondary.MARCHED["tiles"] += n_tiles
-    vis[idx] = torch.cat(tiles)[:kept].to(vis.dtype)
+    vis[idx] = marched[:kept].to(vis.dtype)
     return vis.reshape(B, L)
 
 
@@ -115,25 +136,43 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
     first 48 occupied of 96 samples. As in the reference, the surface is
     where acc > 0.5 and visibility is the nerv transmittance of secondary
     rays over [0.05, 1.5].
-    ``roughness_scale`` scales the decoded roughness (material editing)."""
+    ``roughness_scale`` scales the decoded roughness (material editing).
+
+    On CUDA the G-buffer pass and each visibility tile replay the CUDA
+    graphs of their stage and static arguments (``RELIGHT_GRAPH`` counts
+    them), bit for bit the eager stages; the maps the chunk hands back as
+    the pass made them are copies, not the graph's buffers."""
+    # the static arguments of the two stages, which key their graphs
+    gbuffer_kw = dict(n_samples=n_samples, app_cap=64, march_cap=256)
+    march_kw = dict(
+        n_sample=second_n_sample, vis_near=0.05, vis_far=1.5, march_cap=48,
+        window=FAST_MARCH_KNOBS["second_window"] if fast_vis else 0,
+        window_back=FAST_MARCH_KNOBS["second_window_back"],
+        prepass_n=FAST_MARCH_KNOBS["second_prepass_n"])
 
     def chunk_fn(params, scene, rays, key, rescale3, *, draws=None,
                  vis_bakes=None):
         with torch.no_grad():
-            baked = coarse = None
+            tables = (None, None)
             if fast_vis:
                 if vis_bakes is None:
                     raise ValueError("fast_vis needs vis_bakes = "
                                      "bake_visibility(cfg, params, scene)")
-                baked, coarse = vis_bakes
+                tables = tuple(vis_bakes)
             B = rays.shape[0]
+            lidx = torch.zeros((B,), dtype=torch.int32, device=rays.device)
+
+            def gbuffer(rays, lidx, _tables):
+                out = render_rays(cfg, params, scene, rays, lidx, key=None,
+                                  is_train=False, is_relight=True,
+                                  white_bg=True, **gbuffer_kw)
+                return tuple(out.values()), tuple(out)
+
             with span("primary"):
-                out = render_rays(
-                    cfg, params, scene, rays,
-                    torch.zeros((B,), dtype=torch.int32, device=rays.device),
-                    n_samples=n_samples, key=None, is_train=False,
-                    is_relight=True, white_bg=True, app_cap=64,
-                    march_cap=256)
+                outs, names = secondary.graph_runner(
+                    gbuffer, cfg, params, scene, (), gbuffer_kw,
+                    (rays, lidx), RELIGHT_GRAPH, "gbuffer_")(rays, lidx)
+            out = dict(zip(names, outs))
             acc = out["acc_map"]
             acc_mask = acc > 0.5
             rays_o, rays_d = rays[:, :3], rays[:, 3:6]
@@ -150,15 +189,21 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
                           None)
             cosine_mask = (cosine > 1e-6) & acc_mask[:, None]
 
+            def vis_tile_fn(pts, dirs, tables):
+                return (secondary.compute_transmittance(
+                    cfg, params, scene, pts, dirs, baked=tables[0],
+                    coarse=tables[1], **march_kw)[0],), ()
+
+            run = None
+
             def march(pts, dirs):
-                return secondary.compute_transmittance(
-                    cfg, params, scene, pts, dirs,
-                    n_sample=second_n_sample, vis_near=0.05, vis_far=1.5,
-                    march_cap=48, baked=baked, coarse=coarse,
-                    window=(FAST_MARCH_KNOBS["second_window"] if fast_vis
-                            else 0),
-                    window_back=FAST_MARCH_KNOBS["second_window_back"],
-                    prepass_n=FAST_MARCH_KNOBS["second_prepass_n"])[0]
+                # the graph is keyed on the first tile's inputs
+                nonlocal run
+                if run is None:
+                    run = secondary.graph_runner(
+                        vis_tile_fn, cfg, params, scene, tables, march_kw,
+                        (pts, dirs), RELIGHT_GRAPH, "vis_")
+                return run(pts, dirs)[0][0]
 
             with span("visibility"):
                 visibility = visibility_of_kept_pairs(
@@ -180,8 +225,9 @@ def make_relight_chunk_fn(cfg: F.FieldConfig, env: EnvironmentLight,
             acc1 = acc[:, None]
             acc_bin = torch.where(acc1 <= 0.9, torch.zeros_like(acc1), acc1)
             with_bg = acc_bin * without_bg + (1.0 - acc_bin) * bg
-            return (without_bg, with_bg, acc, albedo, roughness, normal,
-                    out["depth_map"], out["rgb_map"])
+            return (without_bg, with_bg, acc.clone(), albedo, roughness,
+                    normal.clone(), out["depth_map"].clone(),
+                    out["rgb_map"].clone())
 
     return chunk_fn
 

@@ -33,7 +33,9 @@ tile is captured in pieces, one ending at each K1 call, and a replay makes
 each K1 call itself between its pieces, into the buffer the next piece
 reads. A graph is kept per knob set and holds while the parameters and
 scene keep their addresses and shapes (``tile_graph_key``); CPU tensors
-take the eager tile.
+take the eager tile. The machinery (``graph_runner``) takes any function
+of fixed-shape inputs: the relight chunk's G-buffer pass and visibility
+tile run through it too (``render/relight_pipeline.py``).
 """
 from __future__ import annotations
 
@@ -556,16 +558,18 @@ def _tensors(tree: Dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def tile_graph_key(cfg, params: Dict, scene: Dict, tables, knobs: Dict,
-                   inputs):
-    """(knob set, tensor key) of a tile graph. The knob set: the field's
-    config, every static knob of the tile, and the shape, stride, dtype and
-    device of the tile's inputs; a knob set has one graph. The tensor key:
-    the same of the baked tables (copied in before the replays, so not
-    their addresses), and of every tensor in ``params`` and ``scene`` with
-    its address, which the graph reads in place. Adam's in-place updates
-    keep it; a mask, shrink or upsample replaces tensors and changes it."""
-    knob_set = (cfg, tuple(sorted(knobs.items())),
+def tile_graph_key(fn, cfg, params: Dict, scene: Dict, tables,
+                   knobs: Dict, inputs):
+    """(knob set, tensor key) of the graph of ``fn(*inputs, tables)``, a
+    function of fixed-shape inputs (a tile). The knob set: ``fn``'s code,
+    the field's config, every static knob of ``fn``, and the shape, stride,
+    dtype and device of its inputs; a knob set has one graph. The tensor
+    key: the same of the baked tables (copied in before the replays, so
+    not their addresses), and of every tensor in ``params`` and ``scene``
+    with its address, which the graph reads in place. Adam's in-place
+    updates keep it; a mask, shrink or upsample replaces tensors and
+    changes it."""
+    knob_set = (fn.__code__, cfg, tuple(sorted(knobs.items())),
                 tuple(_meta(x) for x in inputs))
     tensors = (tuple(_meta(t) for t in tables),
                tuple((path, _meta(t), t.data_ptr()) for path, t in
@@ -573,11 +577,13 @@ def tile_graph_key(cfg, params: Dict, scene: Dict, tables, knobs: Dict,
     return knob_set, tensors
 
 
-# one tile graph per knob set, a new tensor key replacing it; the knob sets
-# used last, at most _MAX_GRAPHS of them (a run uses one or two: its step's
-# and its eval's)
+# one tile graph per captured function and knob set, a new tensor key
+# replacing it; the knob sets used last, at most _MAX_GRAPHS of them (a
+# process that trains, evaluates and relights uses four: its step's tile,
+# its eval's tile, the relight chunk's G-buffer pass and its visibility
+# tile, one route of it at a time)
 _GRAPHS: Dict = {}
-_MAX_GRAPHS = 4
+_MAX_GRAPHS = 6
 # the stream of the warm-ups and captures, per device
 _SIDE: Dict = {}
 # the operator that replays a piece, once defined; the piece it replays
@@ -609,32 +615,35 @@ def _replay(piece: torch.cuda.CUDAGraph, anchor: torch.Tensor) -> None:
     _OP[1](anchor)
 
 
-def _through_row_gather_fn() -> bool:
+def _through_row_gather_fn(stop) -> bool:
     """Whether the K1 call being captured comes through ``RowGather.apply``
     (``kernels.gather_rows``, an operator that a profiler charges K1's time
-    to) rather than straight from the field."""
+    to) rather than straight from the field; ``stop`` is the code of the
+    captured function, where the search ends."""
     f = sys._getframe(1)
     while f is not None:
         if f.f_code is rows.RowGather.forward.__code__:
             return True
-        if f.f_code is _tile.__code__:
+        if f.f_code is stop:
             return False
         f = f.f_back
     return False
 
 
 class _TileGraph:
-    """A tile captured as CUDA graphs in pieces, K1 launched between them:
-    static copies of the tile's inputs and of the pass's tables, the
-    pieces, after each piece but the last its K1 call (whether through
-    ``RowGather``, table, index, the output buffer the next piece reads),
-    the outputs the capture allocated, the launches of the kernels captured
-    inside the pieces (each replay adds them to ``kernels.LAUNCHES``; the
-    capture launches nothing), and the events of the tiles queued on the
-    card."""
+    """A tile (any function of fixed-shape inputs) captured as CUDA graphs
+    in pieces, K1 launched between them: static copies of the tile's inputs
+    and of its tables, the pieces, after each piece but the last its K1
+    call (whether through ``RowGather``, table, index, the output buffer
+    the next piece reads), the outputs the capture allocated, the launches
+    of the kernels captured inside the pieces (each replay adds them to
+    ``kernels.LAUNCHES``; the capture launches nothing), and the events of
+    the tiles queued on the card. Each capture and replay counts in
+    ``counts`` under ``prefix`` + ``captures`` or ``replays``."""
 
-    def __init__(self, key):
+    def __init__(self, key, counts: Dict, prefix: str = ""):
         self.key = key
+        self.counts, self.prefix = counts, prefix
         self.pieces = []
         self.queued = deque()
 
@@ -669,7 +678,8 @@ class _TileGraph:
             self.pieces[-1].capture_end()
             out = torch.empty((idx.shape[0], table.shape[1]),
                               dtype=table.dtype, device=table.device)
-            self.calls.append((_through_row_gather_fn(), table, idx, out))
+            self.calls.append((_through_row_gather_fn(tile_fn.__code__),
+                               table, idx, out))
             begin()
             return out
 
@@ -687,7 +697,7 @@ class _TileGraph:
                          if rows.LAUNCHES[k] != n}
         for k, n in self.launches.items():
             rows.LAUNCHES[k] -= n
-        TILE_GRAPH["captures"] += 1
+        self.counts[self.prefix + "captures"] += 1
         return outs, names
 
     def load(self, tables) -> None:
@@ -719,28 +729,30 @@ class _TileGraph:
             rows.LAUNCHES[k] += n
         self.queued.append(torch.cuda.Event())
         self.queued[-1].record()
-        TILE_GRAPH["replays"] += 1
+        self.counts[self.prefix + "replays"] += 1
         return self.outputs, self.names
 
 
-def _eager_tiles(cfg, params, scene, tables, knobs):
-    """``run(pts, dirs, lidx, ok) -> (outputs, names)``: the eager tile."""
-    def run(*xs):
-        TILE_GRAPH["eager"] += 1
-        return _tile(cfg, params, scene, *xs, tables, knobs)
-    return run
-
-
-def _tile_runner(cfg, params, scene, tables, knobs, first):
-    """``run(pts, dirs, lidx, ok) -> (outputs, names)`` for the pass's
-    tiles in turn, ``first`` the first tile's inputs (only their shapes,
-    strides, dtypes and devices key the graph): on CUDA the knob set's
-    graph, captured on the first tile ``run`` is given where its tensor key
-    is new, whichever tile that is; for CPU tensors, or inside another
-    capture, the eager tile."""
+def graph_runner(fn, cfg, params, scene, tables, knobs: Dict, first,
+                 counts: Dict, prefix: str = ""):
+    """``run(*xs) -> (outputs, names)``, ``fn(*xs, tables)`` for calls in
+    turn: ``fn`` a function of fixed-shape inputs ``xs`` that reads the
+    ``tables``, ``params`` and ``scene`` and returns a tuple of tensors and
+    a tuple of names, ``knobs`` its static arguments, ``first`` the first
+    call's inputs (only their shapes, strides, dtypes and devices key the
+    graph). On CUDA a replay of the knob set's graph (``tile_graph_key``),
+    captured on the first call ``run`` is given where its tensor key is
+    new; the outputs are the graph's own, which the next replay
+    overwrites. For CPU tensors, or inside another capture, ``fn`` itself.
+    Each call counts once in ``counts``: as ``prefix`` + ``captures`` or
+    ``replays``, or as ``eager``."""
     if not first[0].is_cuda or torch.cuda.is_current_stream_capturing():
-        return _eager_tiles(cfg, params, scene, tables, knobs)
-    knob_set, key = tile_graph_key(cfg, params, scene, tables, knobs, first)
+        def eager(*xs):
+            counts["eager"] += 1
+            return fn(*xs, tables)
+        return eager
+    knob_set, key = tile_graph_key(fn, cfg, params, scene, tables, knobs,
+                                   first)
     graph = _GRAPHS.pop(knob_set, None)
     if graph is not None and graph.key == key:
         _GRAPHS[knob_set] = graph
@@ -749,18 +761,26 @@ def _tile_runner(cfg, params, scene, tables, knobs, first):
         # the old graph, its pool and its buffers go before the new capture
         while len(_GRAPHS) >= _MAX_GRAPHS:
             del _GRAPHS[next(iter(_GRAPHS))]
-        graph = _TileGraph(key)
+        graph = _TileGraph(key, counts, prefix)
 
     def run(*xs):
         # capture and replay on the inputs' card's streams
         with torch.cuda.device(xs[0].device):
             if graph.pieces:
                 return graph.replay(*xs)
-            out = graph.capture(
-                lambda *ys: _tile(cfg, params, scene, *ys, knobs), xs, tables)
+            out = graph.capture(fn, xs, tables)
         _GRAPHS[knob_set] = graph
         return out
     return run
+
+
+def _tile_runner(cfg, params, scene, tables, knobs, first):
+    """``run(pts, dirs, lidx, ok) -> (outputs, names)`` for the pass's
+    tiles in turn, ``first`` the first tile's inputs: the knob set's tile
+    graph on CUDA, the eager tile for CPU tensors (``graph_runner``)."""
+    return graph_runner(
+        lambda *ys: _tile(cfg, params, scene, *ys, knobs), cfg, params,
+        scene, tables, knobs, first, TILE_GRAPH)
 
 
 @torch.no_grad()

@@ -426,7 +426,8 @@ def test_cuda_tile_graph_captures_the_kernel(monkeypatch):
     assert routes["taps"] > 0 and routes["matrix"] == 0
     monkeypatch.setattr(TSec, "_tile_runner",
                         lambda cfg, params, scene, tables, knobs, first:
-                        TSec._eager_tiles(cfg, params, scene, tables, knobs))
+                        lambda *xs: TSec._tile(cfg, params, scene, *xs,
+                                               tables, knobs))
     reset_launch_counts()
     eager, _ = _routes(lambda: TSec.secondary_shading_tiled(
         cfg, params, scene, *args, knobs))

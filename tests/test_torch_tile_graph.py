@@ -371,7 +371,8 @@ def test_profiler_sees_the_replayed_tiles(monkeypatch):
     graphed = TSec._tile_runner
 
     def eager(cfg, params, scene, tables, knobs, first):
-        return TSec._eager_tiles(cfg, params, scene, tables, knobs)
+        # the tile itself, as the CPU runs it
+        return lambda *xs: TSec._tile(cfg, params, scene, *xs, tables, knobs)
 
     gather = rows.row_gather
     got = {}
@@ -419,7 +420,7 @@ def test_cpu_tiles_never_capture():
 
 def _key_inputs(cfg, params, scene, tile=512, **knobs):
     """``tile_graph_key``'s arguments as the pass builds them on the
-    armadillo knobs: a fresh bake, a tile of inputs."""
+    armadillo knobs: the tile, a fresh bake, a tile of inputs."""
     tables = (TF.bake_packed_sigma_grid(cfg, params, scene), None, None,
               None)
     k = dict(n_sample=16, vis_near=0.05, vis_far=1.5, app_cap=16,
@@ -431,7 +432,7 @@ def _key_inputs(cfg, params, scene, tile=512, **knobs):
     inputs = (torch.zeros(tile, 3), torch.ones(tile, 3),
               torch.zeros(tile, dtype=torch.int32),
               torch.ones(tile, dtype=torch.bool))
-    return cfg, params, scene, tables, k, inputs
+    return TSec._tile, cfg, params, scene, tables, k, inputs
 
 
 @pytest.mark.parametrize("change,same_knobs,same_tensors", [
